@@ -10,8 +10,8 @@ Global flag, valid before or after the subcommand name:
                       exit code, the command's seconds, the seconds
                       spent importing torch and the subcommand, card
                       provenance, kernel launch counts, per-stage
-                      seconds and whether the native host decoder was
-                      loaded
+                      seconds, the counters of obs/ and whether the
+                      native host decoder was loaded
 """
 
 from __future__ import annotations
@@ -43,6 +43,8 @@ def _lazy(module: str):
 PROGS = {
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth")),
+    "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
+                "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
 }
 
 
@@ -108,7 +110,8 @@ def _write_report(path: str, prog: str, argv: list[str], rc: int,
                   seconds: float) -> None:
     from .device import card_provenance
     from .io import native
-    from .ops import depth_kernel
+    from .obs import get_registry
+    from .ops import depth_kernel, pairhmm_kernel
     from .utils.profiling import process_totals
 
     report = {
@@ -118,8 +121,10 @@ def _write_report(path: str, prog: str, argv: list[str], rc: int,
         "seconds": seconds,
         "import_seconds": sum(IMPORT_SECONDS.values()),
         "provenance": card_provenance(),
-        "kernel_launches": dict(depth_kernel.LAUNCHES),
+        "kernel_launches": {**depth_kernel.LAUNCHES,
+                            **pairhmm_kernel.LAUNCHES},
         "stage_seconds": process_totals(),
+        "counters": get_registry().snapshot()["counters"],
         "native_io": native.get_lib() is not None,
     }
     with open(path, "w") as fh:

@@ -18,6 +18,12 @@ class NoCudaDevice(RuntimeError):
     device is visible."""
 
 
+class KernelFault(RuntimeError):
+    """A kernel did not build, launch or finish on the card: a fault of
+    the card or its toolchain, not of the data. The retry policy lets it
+    through unretried and unquarantined, so the run fails with it."""
+
+
 def resolve_device(device=None) -> torch.device:
     """``None`` or ``"cuda"`` → the current CUDA device (raises
     :class:`NoCudaDevice` without one); ``"cpu"`` → the CPU."""

@@ -17,24 +17,18 @@ build is one short nvcc call (chip_smoke.py prints its seconds).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 
 import numpy as np
 import torch
 
+from ..device import KernelFault
+from . import _nvcc
 from .coverage import callable_classes
 
 TILE = 1024  # positions per scan tile (csrc/depth_kernel.cu TILE)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SRC = os.path.join(_PKG, "csrc", "depth_kernel.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = list(_nvcc.BASE_FLAGS)
 
 _lock = threading.Lock()
 _lib = None
@@ -45,35 +39,14 @@ BUILD_LOG = ""
 LAUNCHES = {"depth": 0}
 
 
-def _nvcc() -> str:
-    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
-                 "/usr/local/cuda/bin/nvcc", shutil.which("nvcc") or ""):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("depth kernel: nvcc not found (set CUDA_HOME)")
-
-
 def load_library() -> ctypes.CDLL:
     """Build (once per source version) and load the kernel library."""
     global _lib, BUILD_LOG
     with _lock:
         if _lib is not None:
             return _lib
-        with open(SRC, "rb") as fh:
-            tag = hashlib.sha256(
-                fh.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        out = os.path.join(BUILD_DIR, f"libdepth_kernel-{tag}.so")
-        if not os.path.exists(out):
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SRC],
-                               capture_output=True, text=True)
-            if r.returncode != 0:
-                raise RuntimeError(
-                    f"depth kernel: nvcc failed:\n{r.stderr[-4000:]}")
-            BUILD_LOG = r.stderr
-            os.replace(tmp, out)
-        lib = ctypes.CDLL(out)
+        lib, BUILD_LOG = _nvcc.build("depth_kernel.cu", NVCC_FLAGS,
+                                     "depth kernel")
         p, i32, lng = ctypes.c_void_p, ctypes.c_int32, ctypes.c_long
         lib.depth_pipeline_launch.argtypes = [
             ctypes.c_int, p, p, p, lng, i32, i32, i32, i32, i32, i32, i32,
@@ -198,7 +171,7 @@ def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
             ptr(wire_carry), ptr(wsum), ptr(sums), ptr(packed), ptr(depth),
             ptr(cls), stream)
     if rc != 0:
-        raise RuntimeError("depth kernel launch failed: "
+        raise KernelFault("depth kernel launch failed: "
                            + lib.depth_kernel_error_string(rc).decode())
     with _lock:
         LAUNCHES["depth"] += 1

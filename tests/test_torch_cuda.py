@@ -1,4 +1,5 @@
-"""The CUDA depth kernel against its plain PyTorch version, on a card.
+"""The CUDA kernels (depth, pair-HMM) against their plain PyTorch
+versions, on a card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch, without the suite's conftest:
@@ -47,3 +48,50 @@ def test_kernel_equals_plain_on_card():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _pairhmm_bucket(rng, b, read_len, hap_len, dtype):
+    from goleft_tpu_torch.ops import pairhmm as tph
+
+    bases = np.frombuffer(b"ACGT", np.uint8)
+    haps = [bases[rng.integers(0, 4, hap_len)] for _ in range(b)]
+    reads = []
+    for h in haps:
+        start = int(rng.integers(0, max(1, hap_len - read_len)))
+        r = np.resize(h[start:start + read_len], read_len).copy()
+        err = rng.random(read_len) < 0.05
+        r[err] = bases[rng.integers(0, 4, int(err.sum()))]
+        reads.append(tph.encode_seq(r))
+    haps = [tph.encode_seq(h) for h in haps]
+    errs = [tph.phred_to_err(rng.integers(2, 42, read_len)) for _ in reads]
+    (rp, hp), idxs = next(iter(tph.bucket_pairs(reads, haps).items()))
+    packed = tph._pack_bucket(idxs, reads, errs, haps, rp, hp, dtype)
+    trans = tph.transition_probs().astype(dtype)
+    return [torch.from_numpy(a).cuda() for a in (*packed, trans)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("read_len,hap_len,b", [(150, 400, 64),
+                                                (1100, 200, 3)])
+def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b):
+    """f32 rescaled and f64 unscaled; 150 bp reads, and 1,100 bp reads
+    whose rows take two strips of one block; contribs and shifts
+    bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import pairhmm_kernel as pk
+
+    t = _pairhmm_bucket(np.random.default_rng(read_len), b, read_len,
+                        hap_len, dtype)
+    rescale = dtype == np.float32
+    before = pk.LAUNCHES["pairhmm"]
+    got = pk.forward_bucket(*t, rescale=rescale)
+    want = pk.forward_bucket_plain(*t, rescale=rescale)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES["pairhmm"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w), (g.double() - w.double()).abs().max()
+    if not rescale:
+        assert not got[1].any()

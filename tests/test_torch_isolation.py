@@ -33,13 +33,15 @@ def _sources():
 
 
 def test_sources_import_neither_jax_nor_reference():
-    seen = 0
+    seen = []
     for path in _sources():
         with open(path) as fh:
             hits = _FORBIDDEN.findall(fh.read())
         assert not hits, f"{path}: {hits}"
-        seen += 1
-    assert seen > 10
+        seen.append(os.path.relpath(path, PKG))
+    assert len(seen) > 10
+    for sub in ("obs", "plan", "resilience", "models", "ops", "commands"):
+        assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
     assert not _FORBIDDEN.search("from goleft_tpu_torch.io import bam")
@@ -80,6 +82,37 @@ def test_cpu_depth_run_loads_no_jax(tmp_path):
     assert len(rows) == 10 and rows[0] == "chr1\t0\t100\t5.5"
 
 
+def test_cpu_pairhmm_run_loads_no_jax(tmp_path):
+    """A windows document through the port's pairhmm command in a fresh
+    interpreter, on the CPU; then neither jax nor goleft_tpu is
+    loaded."""
+    script = textwrap.dedent(f"""
+        import io, json, sys
+        sys.path.insert(0, {ROOT!r})
+        from goleft_tpu_torch.commands.pairhmm_cmd import run_pairhmm
+        hap = "ACGTTGCAAC" * 6
+        doc = {{"schema": "goleft-tpu.pairhmm-windows/1",
+               "windows": [{{"chrom": "chr1", "start": 0, "end": 60,
+                            "haplotypes": [hap, hap[:30] + "T" + hap[31:]],
+                            "reads": [{{"seq": hap[5:45], "quals": 30}}] * 3}}]}}
+        path = {str(tmp_path / "w.json")!r}
+        json.dump(doc, open(path, "w"))
+        buf = io.StringIO()
+        rc = run_pairhmm(path, out=buf, device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("RC", rc, "ROWS", len(buf.getvalue().splitlines()))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "RC 0 ROWS 2" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(device.NoCudaDevice):
@@ -117,10 +150,11 @@ def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
     import json
 
     rep = json.loads(report.read_text())
-    assert rep["exit_code"] == 1 and rep["kernel_launches"] == {"depth": 0}
+    assert rep["exit_code"] == 1
+    assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0}
 
 
 def test_cli_lists_depth():
-    assert sorted(cli.PROGS) == ["depth"]
+    assert sorted(cli.PROGS) == ["depth", "pairhmm"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
