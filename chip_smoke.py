@@ -7,8 +7,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 1. prints the card's provenance (torch / CUDA versions, name, power limit);
 2. builds the hand-written kernels (csrc/depth_kernel.cu,
-   csrc/pairhmm_kernel.cu) from the checkout, one nvcc each, started
-   together, and prints the build seconds and the ptxas reports;
+   csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu) from the checkout, one
+   nvcc each, started together, and prints the build seconds and the
+   ptxas reports;
 3. holds the depth kernel against its plain PyTorch version on the card at
    one full production shard (10 Mb, 2,000,000 segments of 150 bp, window
    250, max mean depth 100, cap 2600), on both wires, with edge cases
@@ -42,7 +43,29 @@ Run from the root of a checkout, on a machine with one CUDA card:
    and 20 windows' genotype, GQ and PL (+-1) against the oracle, prints
    the seconds, pairs/s, GCUPS and stage split; then a run with a
    permanent injected fault must exit 3 with a quarantine manifest;
-7. prints the kernels line, the card's ``nvidia-smi`` name and power
+7. fabricates a CRAM cohort with tools/bulk_cram.py: 4 samples of
+   200,000 reads of 150 bp with quality strings (3% MAPQ 0, 2%
+   duplicates) on one 2,000,000 bp contig, 10,000 records per container,
+   rANS-Nx16 blocks ORDER0, ORDER0, ORDER1 and STRIPE 4 as the JAX
+   package's make_cram_cohort; and the matrix from the generated reads;
+8. holds the rANS kernel against its plain version bitwise: N = 4 and X32
+   x ORDER0 and ORDER1 x plain, RLE, PACK and RLE+PACK at the sizes of
+   tests/test_rans_device.py up to 20,000 bytes, and STRIPE with uneven
+   lanes, on the card; then every launch of one real 10,000-record
+   container of each codec (ORDER0, ORDER1, STRIPE 4) against the plain
+   version run on the host CPU on copies of the same inputs; the device
+   decode (kernel, expansions, interleave) against the data and the host
+   decoder; a missing ORDER1 context must raise; prints the kernel's and
+   the plain version's time per container of each codec and both bounds;
+9. runs ``python -m goleft_tpu_torch cohortdepth --decode-device`` on the
+   cohort in fresh processes, with the hybrid engine (the main path), the
+   device engine, and ``GOLEFT_TPU_FAULTS=decode:after=1:transient``;
+   every matrix must equal the oracle byte for byte, with no decode
+   fallback and exactly the rans launches counted on the host from the
+   files (per shard, the containers it decodes; per container, its
+   signature groups), whose split it prints; prints the seconds, import
+   seconds, stage seconds and samples x contig bp per second;
+10. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -841,6 +864,430 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
             "launches": launches, "stage_seconds": stages,
             "oracle_pl_max_diff": worst_pl}
 
+# ---- rANS-Nx16 and cohortdepth phases --------------------------------
+
+RANS_SIZES = [0, 1, 3, 17, 63, 64, 65, 127, 4095, 4097, 8191, 20000]
+RANS_STRIPE_SIZES = (20000, 19999, 19998, 4097, 101, 7)
+# the dependent chain of one round, in SM cycles (see PERF.md §6): the
+# shared-memory slot load (~30), the multiply-add (~6), ballot and popc
+# (~12), the 16-bit payload load from L1 (~35) and the state merge (~6)
+RANS_CYCLES_PER_ROUND = 90
+CO_SAMPLES, CO_LEN, CO_READS = 4, 2_000_000, 200_000
+CO_RPC, CO_WINDOW = 10_000, 500
+# (rANS order, stripe lanes) per sample, as the JAX package's
+# ops/decode_smoke.py::make_cram_cohort: ORDER0, ORDER0, ORDER1, STRIPE 4
+CO_CODECS = [(0, 0), (0, 0), (1, 0), (0, 4)]
+CO_FAULT = "decode:after=1:transient"
+
+
+def rans_flag_matrix(rng):
+    """(data, stream) cases: N = 4 and X32 x ORDER0 and ORDER1 x plain,
+    RLE, PACK and RLE+PACK at tests/test_rans_device.py's sizes, and
+    STRIPE with uneven lanes (ORDER0, X32 and ORDER1 lanes)."""
+    from goleft_tpu_torch.io import rans_nx16 as rx
+
+    ramp = (np.cumsum(rng.choice([0, 0, 0, 1, 2, 5], 20000)) % 120) \
+        .astype(np.uint8)
+    cases = []
+    for x32 in (False, True):
+        for order in (0, 1):
+            for rle, pack in ((False, False), (True, False), (False, True),
+                              (True, True)):
+                for sz in RANS_SIZES:
+                    if order:
+                        d = ramp[:sz] % 11 if pack else ramp[:sz]
+                    else:
+                        a = 7 if pack else int(rng.integers(2, 48))
+                        d = rng.integers(0, a, sz).astype(np.uint8)
+                    d = d.tobytes()
+                    cases.append((d, rx.encode(d, order=order, use_rle=rle,
+                                               use_pack=pack, x32=x32)))
+    for sz in RANS_STRIPE_SIZES:
+        for kw in (dict(stripe=4), dict(stripe=3), dict(stripe=4, x32=True),
+                   dict(stripe=2, order=1)):
+            d = ramp[:sz].tobytes()
+            cases.append((d, rx.encode(d, **kw)))
+    assert sum(bool(e[0] & rx.F_ORDER1) for _, e in cases) > 20
+    return cases
+
+
+def rans_groups(plans, dev):
+    """Signature groups of the non-CAT streams (stripe lanes flattened),
+    as ops/rans_device.py launches them: [(sig, plans, tensors)]."""
+    import torch
+
+    from goleft_tpu_torch.ops import rans_device as rd
+
+    flat = []
+    for p in plans:
+        flat += p.children if p.stripe else [p]
+    groups = {}
+    for p in flat:
+        if not p.cat:
+            groups.setdefault(rd._signature(p), []).append(p)
+    out = []
+    for sig in sorted(groups):
+        host = rd._host_arrays(groups[sig], sig)
+        host["states"] = host["states"].view(np.int32)
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in host.items()}
+        out.append((sig, groups[sig], t))
+    return out
+
+
+def rans_call(fn, sig, t):
+    """rans_decode or rans_decode_plain on one group's tensors."""
+    n, order1, shift, lit_cap = sig[0], sig[2], sig[3], sig[8]
+    tables = dict(ctx_index=t["ctx_index"], ctx_freq=t["ctx_freq"],
+                  alphabet=t["alphabet"], shift=shift) if order1 \
+        else dict(freq=t["freq"])
+    return fn(t["payload"], t["plen"], t["states"], t["inner"], n_states=n,
+              out_len=lit_cap, **tables)
+
+
+def rans_abs_err(got, want) -> int:
+    """Largest |kernel - plain| over the symbols and, for ORDER1, the
+    missing-context flags of one group."""
+    err = int((got[0].cpu().int() - want[0].cpu().int()).abs().max())
+    if got[1] is not None:
+        err = max(err, int((got[1].cpu() - want[1].cpu()).abs().max()))
+    return err
+
+
+def rans_bitwise(groups, what: str, on_host: bool = False) -> tuple:
+    """Kernel vs plain version on every group, bitwise; the plain version
+    runs on the card, or with ``on_host`` on copies of the same tensors on
+    the host CPU. Returns (groups held, max abs err, plain version's
+    seconds)."""
+    import torch
+
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    err, plain_s = 0, 0.0
+    for sig, _, t in groups:
+        got = rans_call(rk.rans_decode, sig, t)
+        if on_host:
+            t = {k: v.cpu() for k, v in t.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = rans_call(rk.rans_decode_plain, sig, t)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t0
+        e = rans_abs_err(got, want)
+        if e:
+            raise AssertionError(
+                f"rans kernel ({what}, signature {sig}): differs from the "
+                f"plain version (max abs err {e})")
+        err = max(err, e)
+    return len(groups), err, plain_s
+
+
+class BlockRecorder:
+    """A CRAM block decoder that keeps the raw blocks it is handed and
+    decodes them on the host (io/cram.py's codecs)."""
+
+    def __init__(self):
+        self.raws = []
+
+    def decode_blocks(self, raws):
+        from goleft_tpu_torch.io.cram import decode_raw_block
+
+        self.raws.append(list(raws))
+        return [decode_raw_block(rb).data for rb in raws]
+
+
+def first_container_blocks(path: str):
+    """The raw blocks of a CRAM file's first container (the one its
+    .crai lists first)."""
+    from goleft_tpu_torch.io.crai import load_crai_entries
+    from goleft_tpu_torch.io.cram import CramFile
+
+    start = load_crai_entries(path + ".crai")[0][1]  # 1-based
+    cf = CramFile.from_file(path)
+    rec = BlockRecorder()
+    cf.set_block_decoder(rec)
+    cf.read_columns(tid=0, start=start - 1, end=start)
+    return rec.raws[0]
+
+
+def sm_clock_hz() -> float:
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                        "--format=csv,noheader,nounits"],
+                       capture_output=True, text=True, timeout=30)
+    return float(r.stdout.strip().splitlines()[0]) * 1e6
+
+
+def rans_kernel_phase(dev, crams) -> dict:
+    """The rANS kernel against its plain version, bitwise, on the flag
+    matrix and on one real 10,000-record container of each codec of the
+    cohort; the device decode (kernel + expansions + interleave) against
+    the data and the host decoder; a missing ORDER1 context must raise;
+    times and bounds of each container."""
+    import torch
+
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.io.cram import M_RANSNX16
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    rng = np.random.default_rng(57)
+    t0 = time.perf_counter()
+    cases = rans_flag_matrix(rng)
+    plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
+    assert all(p is not None for p in plans)
+    held, max_err, _ = rans_bitwise(rans_groups(plans, dev), "flag matrix")
+    got = rd.decode_parsed(plans, device=dev)
+    bad = [i for i, ((d, _), g) in enumerate(zip(cases, got)) if g != d]
+    assert not bad, f"device decode differs from the data in cases {bad}"
+    coded = sum(not (c.cat or c.stripe) for c in plans) + sum(
+        not ch.cat for c in plans if c.stripe for ch in c.children)
+    log(f"rans kernel flag matrix: {len(cases)} streams ({coded} rANS "
+        f"streams and lanes, the rest CAT), {held} signature "
+        f"groups bitwise equal to the plain version; device decode (kernel, "
+        f"RLE/PACK expansions, STRIPE interleave) equals the data "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    # a context row knocked out: the kernel's diagnostic, as the plain
+    # version's, and the JAX package's error
+    d, e = max(((d, e) for d, e in cases if e[0] & rx.F_ORDER1),
+               key=lambda c: len(c[0]))
+    p = rx.parse_nx16(e, len(d))
+    used = np.flatnonzero(p.ctx_index >= 0)
+    p.ctx_index = p.ctx_index.copy()
+    p.ctx_index[used[len(used) // 2]] = -1
+    (sig, _, t), = rans_groups([p], dev)
+    kb = rans_call(rk.rans_decode, sig, t)[1]
+    pb = rans_call(rk.rans_decode_plain, sig, t)[1]
+    assert int(kb[0]) == int(pb[0]) == 1, (kb, pb)
+    try:
+        rd.decode_parsed([p], device=dev)
+    except ValueError as e:
+        assert "missing order-1 context" in str(e), e
+    else:
+        raise AssertionError("a missing ORDER1 context did not raise")
+    log("rans kernel: a missing ORDER1 context sets the kernel's "
+        "diagnostic and raises 'rans-nx16: missing order-1 context'")
+
+    out = {}
+    clock = sm_clock_hz()
+    for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
+        raws = [rb for rb in first_container_blocks(crams[k])
+                if rb.method == M_RANSNX16]
+        cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
+        assert all(p is not None for p in cplans), label
+        groups = rans_groups(cplans, dev)
+        t0 = time.perf_counter()
+        dec = rd.decode_parsed(cplans, device=dev)
+        for rb, g in zip(raws, dec):
+            if g != rx.decode(rb.raw, rb.rsize):
+                raise AssertionError(f"{label} container: block "
+                                     f"{rb.content_id} differs from the "
+                                     "host decoder")
+        check_s = time.perf_counter() - t0
+
+        def launch_all():
+            for sig, _, t in groups:
+                rans_call(rk.rans_decode, sig, t)
+
+        ms = cuda_median_ms(launch_all, reps=5)
+        flat = [c for p in cplans for c in (p.children if p.stripe else [p])
+                if not c.cat]
+        rounds = max(rk.rounds_needed(torch.tensor([c.inner_len]),
+                                      c.n_states, c.order1) for c in flat)
+        nbytes = sum(c.payload_bytes + c.table_bytes + c.inner_len
+                     for c in flat)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 16 * sum(c.inner_len for c in flat) / INT_OPS_PER_S * 1e3
+        res = {"ms": ms, "launches_per_container": len(groups),
+               "streams": len(flat), "longest_rounds": rounds,
+               "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "chain_bound_ms": rounds * RANS_CYCLES_PER_ROUND / clock
+               * 1e3, "sm_clock_hz": clock,
+               "qs_bytes": max(rb.rsize for rb in raws)}
+        # every group against the plain version, run once on the host
+        # CPU: on the card each of its rounds is a few dozen small
+        # launches, minutes at 375,000 rounds
+        _, err, plain_s = rans_bitwise(groups, f"{label} container",
+                                       on_host=True)
+        max_err = max(max_err, err)
+        res["plain_ms"] = plain_s * 1e3
+        res["plain_us_per_round"] = plain_s * 1e6 / rounds
+        out[label] = res
+        log(f"rans kernel, {label} container of {CO_RPC} records: "
+            f"{len(raws)} rANS blocks = {len(flat)} streams in "
+            f"{len(groups)} launches, longest {rounds} rounds; decode equals "
+            f"the host decoder ({check_s:.1f} s with the check); kernel "
+            f"median {ms:.3f} ms per container, every group bitwise equal "
+            f"to the plain version on the host CPU "
+            f"({res['plain_ms']:.1f} ms)"
+            + f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+            f"{nbytes} bytes), dependence chain "
+            f"{res['chain_bound_ms']:.3f} ms ({rounds} rounds x "
+            f"{RANS_CYCLES_PER_ROUND} cycles at {clock / 1e6:.0f} MHz); "
+            f"library: none")
+    out["max_abs_err"] = max_err
+    return out
+
+
+def cohort_fabricate(workdir: str, rng, n_reads=CO_READS, contig_len=CO_LEN,
+                     rpc=CO_RPC):
+    """The cohort: per sample ``n_reads`` 150 bp reads with quality
+    strings (3% MAPQ 0, 2% duplicates), written by tools/bulk_cram.py with
+    the sample's codec; a .fai. → (paths, fai, names, truth)."""
+    from tools.bulk_cram import write_cram_files
+
+    files, truth = [], []
+    for i, (order, stripe) in enumerate(CO_CODECS):
+        pos = np.sort(rng.integers(0, contig_len - READ_LEN, n_reads))
+        mapq = np.where(rng.random(n_reads) < 0.03, 0, 60)
+        flag = np.where(rng.random(n_reads) < 0.02, 0x400, 0)
+        drift = np.arange(READ_LEN) // 10
+        quals = (np.clip(rng.normal(38, 4, (n_reads, READ_LEN)) - drift, 2, 41)
+                 + 33).astype(np.uint8)
+        files.append(dict(path=os.path.join(workdir, f"co{i}.cram"),
+                          contig="chr1", contig_len=contig_len,
+                          sample=f"co{i}", pos=pos, mapq=mapq, flag=flag,
+                          quals=quals, order=order, stripe=stripe))
+        truth.append((pos, mapq, flag))
+    write_cram_files(files, records_per_container=rpc, read_len=READ_LEN)
+    fai = os.path.join(workdir, "co.fa.fai")
+    with open(fai, "w") as fh:
+        fh.write(f"chr1\t{contig_len}\t6\t60\t61\n")
+    return [f["path"] for f in files], fai, [f["sample"] for f in files], \
+        truth
+
+
+def cohort_oracle(truth, names, contig_len=CO_LEN,
+                  window=CO_WINDOW) -> str:
+    """The matrix from the generated reads: kept reads (MAPQ >= 1, no
+    0x704 flag) → per-base depth by bincount + cumsum → window sums →
+    round-half-up means."""
+    cols = []
+    for pos, mapq, flag in truth:
+        kept = pos[(mapq >= 1) & ((flag & 0x704) == 0)]
+        delta = (np.bincount(kept, minlength=contig_len + 1)
+                 - np.bincount(kept + READ_LEN, minlength=contig_len + 1))
+        depth = np.minimum(np.cumsum(delta[:contig_len]), 2500)
+        starts = np.arange(0, contig_len, window)
+        sums = np.add.reduceat(depth, starts)
+        spans = np.minimum(starts + window, contig_len) - starts
+        cols.append((0.5 + sums / spans).astype(np.int64))
+    rows = ["#chrom\tstart\tend\t" + "\t".join(names) + "\n"]
+    for k, s in enumerate(range(0, contig_len, window)):
+        rows.append(f"chr1\t{s}\t{min(s + window, contig_len)}\t"
+                    + "\t".join(str(c[k]) for c in cols) + "\n")
+    return "".join(rows)
+
+
+def cohort_launch_plan(crams, fai) -> dict:
+    """The rans launches a cohortdepth run makes, counted on the host from
+    the files: per shard, each container the shard's .crai lookup decodes
+    (one that straddles a shard boundary is decoded once per shard); per
+    container, the distinct signatures of its non-CAT rANS streams,
+    stripe lanes flattened (one launch each). → {file: {launches per
+    container: containers decoded}}."""
+    from collections import Counter
+
+    from goleft_tpu_torch.commands.cohortdepth import cohort_regions
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.io.cram import (
+        M_RANSNX16, ContainerHeader, CramFile, read_block_raw,
+    )
+    from goleft_tpu_torch.io.fai import read_fai
+    from goleft_tpu_torch.ops import rans_device as rd
+
+    regions = cohort_regions(read_fai(fai), "", CO_WINDOW, None)
+    plan = {}
+    for path in crams:
+        cf = CramFile.from_file(path)
+        groups_at, split = {}, Counter()
+        for _, s, e in regions:
+            for off in cf._region_offsets(0, s, e):
+                if off not in groups_at:
+                    hdr, pos = ContainerHeader.parse(cf._buf, off, False)
+                    end, sigs = pos + hdr.length, set()
+                    while pos < end:
+                        rb, pos = read_block_raw(cf._buf, pos)
+                        p = rx.parse_nx16(rb.raw, rb.rsize) \
+                            if rb.method == M_RANSNX16 else None
+                        for q in (p.children if p.stripe else [p]) if p \
+                                else []:
+                            if not q.cat:
+                                sigs.add(rd._signature(q))
+                    groups_at[off] = len(sigs)
+                split[groups_at[off]] += 1
+        plan[os.path.basename(path)] = dict(sorted(split.items()))
+    return plan
+
+
+def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
+    """``python -m goleft_tpu_torch cohortdepth --decode-device`` on the
+    cohort in fresh processes: the hybrid engine (the main path), the
+    device engine, and a transient fault at the decode site; every
+    matrix byte-identical to the oracle; decode counters, and exactly the
+    rans launches of the host's count."""
+    plan = cohort_launch_plan(crams, fai)
+    planned = sum(k * n for split in plan.values() for k, n in split.items())
+    log(f"cohortdepth rans launch plan (file: {{launches per container: "
+        f"containers decoded}}): {plan}; {planned} launches in all")
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    runs = {}
+    for name, extra, run_env in (
+            ("hybrid", [], env), ("device", ["--engine", "device"], env),
+            ("fault", [], dict(env, GOLEFT_TPU_FAULTS=CO_FAULT))):
+        report = os.path.join(workdir, f"co_{name}.json")
+        r, wall = _run_cli(root, ["--metrics-out", report, "cohortdepth",
+                                  "--fai", fai, "-w", str(CO_WINDOW),
+                                  "--decode-device", *extra, *crams],
+                           run_env)
+        if r.returncode != 0:
+            raise AssertionError(f"cohortdepth ({name}) failed "
+                                 f"({r.returncode}):\n{r.stderr[-4000:]}")
+        if r.stdout != want:
+            i = next((k for k, (a, b) in enumerate(zip(r.stdout, want))
+                      if a != b), min(len(r.stdout), len(want)))
+            raise AssertionError(
+                f"cohortdepth ({name}) matrix differs from the oracle at "
+                f"byte {i}: got {r.stdout[i - 80:i + 80]!r} want "
+                f"{want[i - 80:i + 80]!r}")
+        with open(report) as fh:
+            rep = json.load(fh)
+        c = rep["counters"]
+        launches = rep["kernel_launches"]
+        assert launches["rans"] == planned > 0, (launches, planned)
+        assert c["decode.device_blocks_total"] > 0, c
+        assert c["decode.device_fallback_total"] == 0, c
+        assert c["decode.bucket_cap_fallback_total"] == 0, c
+        if name == "device":
+            assert launches["depth"] == CO_SAMPLES, launches
+        if name == "fault":
+            assert c.get("resilience.retries_total", 0) >= 1, c
+        stages = rep["stage_seconds"]
+        cmd_s = rep["seconds"]
+        runs[name] = {"wall_s": wall, "command_s": cmd_s,
+                      "import_s": rep["import_seconds"],
+                      "stage_seconds": stages, "launches": launches,
+                      "counters": {k: v for k, v in c.items()
+                                   if k.startswith(("decode.", "prefetch.",
+                                                    "resilience."))},
+                      "bases_per_s": CO_SAMPLES * CO_LEN / cmd_s,
+                      "launch_plan": plan}
+        log(f"cohortdepth --decode-device ({name}): matrix byte-identical to "
+            f"the oracle; process wall {wall:.3f} s, command {cmd_s:.3f} s, "
+            f"import {rep['import_seconds']:.3f} s; "
+            f"{CO_SAMPLES * CO_LEN / cmd_s / 1e6:.3f} Mbases/s "
+            f"({CO_SAMPLES} samples x {CO_LEN} bp); launches {launches}; "
+            f"device blocks {c['decode.device_blocks_total']}, fallbacks "
+            f"{c['decode.device_fallback_total']}, cap fallbacks "
+            f"{c['decode.bucket_cap_fallback_total']}, host blocks "
+            f"{c['decode.host_blocks_total']}, retries "
+            f"{c.get('resilience.retries_total', 0)}; stage seconds: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+    return runs
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
@@ -870,16 +1317,17 @@ def main(argv=None) -> int:
     from goleft_tpu_torch.device import card_provenance, nvidia_smi_line
     from goleft_tpu_torch.ops import depth_kernel as dk
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
+    from goleft_tpu_torch.ops import rans_kernel as rk
 
     prov = card_provenance()
     log("provenance: " + json.dumps(prov))
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    built = build_kernels({"depth": dk, "pairhmm": pk})
+    built = build_kernels({"depth": dk, "pairhmm": pk, "rans": rk})
     log(f"kernels built in parallel in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
-    for mod in (dk, pk):
+    for mod in (dk, pk, rk):
         log(mod.BUILD_LOG.strip())
 
     blank = {"status": "fail", "launches": 0, "max_abs_err": None,
@@ -891,7 +1339,10 @@ def main(argv=None) -> int:
     pairhmm = dict(name="pairhmm", route="cuda",
                    source="goleft_tpu_torch/csrc/pairhmm_kernel.cu",
                    replaces="goleft_tpu/ops/pairhmm.py:576", **blank)
-    kernels = [depth, pairhmm]
+    rans = dict(name="rans", route="cuda",
+                source="goleft_tpu_torch/csrc/rans_kernel.cu",
+                replaces="goleft_tpu/ops/rans_device.py:494", **blank)
+    kernels = [depth, pairhmm, rans]
     results = {"provenance": prov, "build_s": built}
     workdir = os.path.join(root, "build", "chip_smoke")
     try:
@@ -912,6 +1363,24 @@ def main(argv=None) -> int:
                        max_abs_err=pres["max_abs_err"], ms=f32["ms"],
                        plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
                        bound_by=f32["bound_by"])
+
+        t0 = time.perf_counter()
+        crams, fai, names, truth = cohort_fabricate(
+            workdir, np.random.default_rng(31))
+        want = cohort_oracle(truth, names)
+        log(f"fabricated {CO_SAMPLES} CRAMs of {CO_READS} reads on a "
+            f"{CO_LEN} bp contig ({CO_RPC} records per container, "
+            f"{sum(os.path.getsize(c) for c in crams)} bytes) and the "
+            f"oracle matrix in {time.perf_counter() - t0:.1f} s")
+        results["rans_kernel"] = rres = rans_kernel_phase(dev, crams)
+        results["cohort_e2e"] = co = cohort_e2e_phase(root, workdir, crams,
+                                                      fai, want)
+        o0 = rres["ORDER0"]  # the cohort's most common codec
+        rans.update(status="pass", launches=co["hybrid"]["launches"]["rans"],
+                    max_abs_err=rres["max_abs_err"], ms=o0["ms"],
+                    plain_ms=o0["plain_ms"], bound_ms=o0["bound_ms"],
+                    bound_by=o0["bound_by"],
+                    chain_bound_ms=o0["chain_bound_ms"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)

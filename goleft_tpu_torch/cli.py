@@ -41,6 +41,8 @@ def _lazy(module: str):
 
 
 PROGS = {
+    "cohortdepth": ("windowed depth matrix for a cohort of BAM/CRAM files "
+                    "on the CUDA card", _lazy(".commands.cohortdepth")),
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth")),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
@@ -111,7 +113,7 @@ def _write_report(path: str, prog: str, argv: list[str], rc: int,
     from .device import card_provenance
     from .io import native
     from .obs import get_registry
-    from .ops import depth_kernel, pairhmm_kernel
+    from .ops import depth_kernel, pairhmm_kernel, rans_kernel
     from .utils.profiling import process_totals
 
     report = {
@@ -122,7 +124,8 @@ def _write_report(path: str, prog: str, argv: list[str], rc: int,
         "import_seconds": sum(IMPORT_SECONDS.values()),
         "provenance": card_provenance(),
         "kernel_launches": {**depth_kernel.LAUNCHES,
-                            **pairhmm_kernel.LAUNCHES},
+                            **pairhmm_kernel.LAUNCHES,
+                            **rans_kernel.LAUNCHES},
         "stage_seconds": process_totals(),
         "counters": get_registry().snapshot()["counters"],
         "native_io": native.get_lib() is not None,

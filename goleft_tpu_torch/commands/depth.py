@@ -34,7 +34,7 @@ import torch
 
 from ..device import resolve_device
 from ..io.bai import query_voffset, read_bai
-from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
+from ..io.bam import DEPTH_SKIP_FLAGS, filter_clip_segments, open_bam_file
 from ..io.fai import Faidx, read_fai
 from ..ops.coverage import (
     CLASS_NAMES, bucket_size, pack_segments_u16, run_length_encode,
@@ -45,6 +45,7 @@ from ..ops.depth_pipeline import (
     shard_depth_pipeline_packed_cls_packed, unpack_cls_2bit,
 )
 from ..utils.xopen import xopen
+from . import add_no_crc_flag, apply_no_crc
 
 STEP = 10_000_000  # shard size, depth/depth.go:48
 DEPTH_CAP_EXTRA = 2500  # -d = MaxMeanDepth + 2500, depth/depth.go:116
@@ -92,9 +93,13 @@ def _decode_shard_segments(bam, bai, tid: int, start: int, end: int,
                            flag_mask: int = DEPTH_SKIP_FLAGS):
     """Host decode of the shard's FILTERED clipped segment endpoints —
     what the device pipeline consumes. Returns (seg_start, seg_end);
-    pair with an all-true keep mask."""
+    pair with an all-true keep mask. A CRAM handle (``bai`` None) selects
+    its containers through its .crai and decodes columns."""
     if tid < 0:
         return _EMPTY_SEGS
+    if bai is None:
+        cols = bam.read_columns(tid=tid, start=start, end=end)
+        return filter_clip_segments(cols, start, end, min_mapq, flag_mask)
     voff = query_voffset(bai, tid, start)
     if voff is None:
         return _EMPTY_SEGS
@@ -234,11 +239,15 @@ def write_shard_output(
 
 def _setup(bam, reference, fai, window, min_cov, max_mean_depth, mapq,
            chrom, bed, stats, device):
-    """Open the BAM and its index, make the regions and the engine (the
-    engine's device check initialises CUDA)."""
+    """Open the BAM (its .bai) or CRAM (its .crai, inside the handle),
+    make the regions and the engine (the engine's device check
+    initialises CUDA)."""
     handle = open_bam_file(bam)
-    bai = read_bai(bam + ".bai" if os.path.exists(bam + ".bai")
-                   else bam[:-4] + ".bai")
+    if getattr(handle, "is_cram", False):
+        bai = None
+    else:
+        bai = read_bai(bam + ".bai" if os.path.exists(bam + ".bai")
+                       else bam[:-4] + ".bai")
     fai_path = fai or (reference + ".fai" if reference else None)
     if bed is None:
         if fai_path is None:
@@ -368,17 +377,10 @@ def main(argv=None):
     p.add_argument("--profile", default=None,
                    help="profiler trace directory (not ported yet)")
     p.add_argument("--prefix", required=True)
-    p.add_argument(
-        "--no-crc", action="store_true",
-        help="skip BGZF payload CRC verification. Truncation, broken "
-             "streams and length mismatches are still caught; a bit flip "
-             "that leaves a valid stream is NOT — only use on trusted "
-             "local files")
+    add_no_crc_flag(p)
     p.add_argument("bam")
     a = p.parse_args(argv)
-    if a.no_crc:
-        # the native streaming decoder reads this at call time
-        os.environ["GOLEFT_TPU_SKIP_CRC"] = "1"
+    apply_no_crc(a.no_crc)
     run_depth(
         a.bam, a.prefix, reference=a.reference, window=a.windowsize,
         min_cov=a.mincov, max_mean_depth=a.maxmeandepth, mapq=a.mapq,

@@ -4,7 +4,7 @@ A copy of the JAX package's io/bam.py trimmed to what ``depth`` uses on
 BAM input: header parsing, record decode into columnar arrays, the lazy
 native region-streaming handle whose ``read_segments`` feeds the depth
 kernel, the pure-Python fallback adapter, and the record writer used to
-fabricate test fixtures. CRAM input is not ported yet.
+fabricate test fixtures. CRAM input opens as io/cram.py's CramFile.
 
 CIGAR op semantics (spec table): M/=/X consume query+ref, D/N consume ref
 only, I/S consume query only, H/P consume neither. Depth counts only
@@ -147,7 +147,8 @@ class BamReader:
 
     def __init__(self, data: bytes):
         if data[:4] == b"CRAM":
-            raise ValueError("CRAM input is not supported by this port yet")
+            raise ValueError(
+                "BamReader got CRAM bytes — open with io.cram.CramFile")
         self._r = BgzfReader(data)
         magic = self._r.read(4)
         if magic != BAM_MAGIC:
@@ -333,7 +334,8 @@ class BamFile:
         from . import native
 
         if bytes(data[:4]) == b"CRAM":
-            raise ValueError("CRAM input is not supported by this port yet")
+            raise ValueError(
+                "BamFile got CRAM bytes — open with io.cram.CramFile")
         scan = native.bgzf_scan(data)
         if scan is None:
             raise RuntimeError("BamFile requires the native library")
@@ -459,18 +461,26 @@ class _PyBamAdapter:
 
 
 def open_bam_file(path: str):
-    """Open a BAM from disk: the lazy native handle (mmap of the
-    compressed file) when the native library is available, else the
-    pure-Python adapter. Corrupt input exits with one clean line."""
+    """Open a BAM or CRAM from disk. A CRAM opens as io/cram.py's
+    CramFile (region access through its .crai); a BAM as the lazy native
+    handle (mmap of the compressed file) when the native library is
+    available, else the pure-Python adapter. Corrupt input exits with
+    one clean line; remote paths are refused."""
     import zlib
 
     from . import native
+    from .cram import CramFile, is_remote
 
+    if is_remote(path):
+        raise SystemExit(f"{path}: remote inputs are not ported to "
+                         "goleft_tpu_torch yet")
     with open(path, "rb") as fh:
         magic = fh.read(4)
     if magic == b"CRAM":
-        raise SystemExit(f"{path}: CRAM input is not supported by this "
-                         "port yet")
+        try:
+            return CramFile.from_file(path)
+        except ValueError as e:
+            raise SystemExit(f"{path}: CRAM open failed: {e}") from e
     try:
         if native.get_lib() is not None:
             return BamFile.from_file(path)

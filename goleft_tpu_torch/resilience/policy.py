@@ -11,8 +11,9 @@ path uses.
   build, launch or finish) is neither retried nor classified: it passes
   through, so a broken card or toolchain fails the run with its own
   error instead of quarantining every bucket.
-- :class:`Quarantine`: the windows of a permanently failing bucket are
-  set aside so the rest of the run completes (exit 3).
+- :class:`Quarantine`: the windows of a permanently failing bucket, or
+  the samples of a cohort, are set aside so the rest of the run
+  completes (exit 3).
 """
 
 from __future__ import annotations
@@ -144,6 +145,10 @@ class Quarantine:
                     phase, error)
         return True
 
+    def __contains__(self, key) -> bool:
+        with self._lock:
+            return key in self._entries
+
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
@@ -162,6 +167,22 @@ class Quarantine:
             return {"quarantined": sorted(
                 self._entries.values(),
                 key=lambda e: (e["sample"], e["source"]))}
+
+    def exit_summary(self) -> str:
+        """The CLI's stderr epilogue for a degraded run: one line, then
+        one line per entry with its effect ('open' failures drop the
+        sample's column, others zero-fill its remaining shards)."""
+        entries = self.summary()["quarantined"]
+        lines = [f"resilience: {len(entries)} sample(s) quarantined — "
+                 "run completed degraded without them (exit 3)"]
+        for e in entries:
+            effect = ("column dropped" if e["phase"] == "open"
+                      else "remaining shards zero-filled")
+            lines.append(
+                f"  {e['sample']} ({e['source']}): {e['error']} "
+                f"[{e['classification']}, {e['attempts']} attempt(s), "
+                f"{effect}]")
+        return "\n".join(lines)
 
     def write(self, path: str) -> None:
         """Atomic JSON quarantine manifest."""

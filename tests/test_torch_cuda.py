@@ -1,5 +1,5 @@
-"""The CUDA kernels (depth, pair-HMM) against their plain PyTorch
-versions, on a card.
+"""The CUDA kernels (depth, pair-HMM, rANS-Nx16) against their plain
+PyTorch versions, on a card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch, without the suite's conftest:
@@ -95,3 +95,97 @@ def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b):
         assert torch.equal(g, w), (g.double() - w.double()).abs().max()
     if not rescale:
         assert not got[1].any()
+
+
+def _rans_streams(rng):
+    """A flag matrix of streams, encoded by the port: N = 4 and X32 x
+    ORDER0 and ORDER1 x plain, RLE, PACK, RLE+PACK, and STRIPE lanes."""
+    from goleft_tpu_torch.io import rans_nx16 as rx
+
+    ramp = (np.cumsum(rng.choice([0, 0, 0, 1, 2, 5], 9000)) % 120) \
+        .astype(np.uint8)
+    cases = []
+    for x32 in (False, True):
+        for order in (0, 1):
+            for rle, pack in ((False, False), (True, False), (False, True),
+                              (True, True)):
+                for sz in (17, 4097, 9000):
+                    d = (ramp[:sz] % 11 if pack else ramp[:sz]) if order \
+                        else rng.integers(0, 7 if pack else 40, sz).astype(
+                            np.uint8)
+                    d = d.tobytes()
+                    cases.append((d, rx.encode(d, order=order, use_rle=rle,
+                                               use_pack=pack, x32=x32)))
+    for sz in (9000, 8999, 101):
+        cases.append((ramp[:sz].tobytes(), rx.encode(ramp[:sz].tobytes(),
+                                                     stripe=3)))
+    return cases
+
+
+def _rans_groups(plans, dev):
+    from goleft_tpu_torch.ops import rans_device as rd
+
+    flat = [c for p in plans for c in (p.children if p.stripe else [p])]
+    groups = {}
+    for p in flat:
+        if not p.cat:
+            groups.setdefault(rd._signature(p), []).append(p)
+    for sig, grp in sorted(groups.items()):
+        host = rd._host_arrays(grp, sig)
+        host["states"] = host["states"].view(np.int32)
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in host.items()}
+        tables = dict(ctx_index=t["ctx_index"], ctx_freq=t["ctx_freq"],
+                      alphabet=t["alphabet"], shift=sig[3]) if sig[2] \
+            else dict(freq=t["freq"])
+        yield (t["payload"], t["plen"], t["states"], t["inner"]), dict(
+            n_states=sig[0], out_len=sig[8], **tables)
+
+
+@pytest.mark.cuda
+def test_rans_kernel_equals_plain_on_card():
+    """ORDER0 and ORDER1 at N = 4 and 32, every transform, STRIPE lanes:
+    symbols and missing-context flags bitwise; the device decode equals
+    the data."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    cases = _rans_streams(np.random.default_rng(4))
+    plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
+    dev = torch.device("cuda")
+    n = 0
+    for args, kw in _rans_groups(plans, dev):
+        before = rk.LAUNCHES["rans"]
+        got = rk.rans_decode(*args, **kw)
+        want = rk.rans_decode_plain(*args, **kw)
+        torch.cuda.synchronize()
+        assert rk.LAUNCHES["rans"] == before + 1
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (want[1] is None)
+        if got[1] is not None:
+            assert torch.equal(got[1], want[1])
+        n += 1
+    assert n >= 8
+    assert rd.decode_parsed(plans, device=dev) == [d for d, _ in cases]
+
+
+@pytest.mark.cuda
+def test_cuda_tensors_never_reach_the_plain_rans(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    for name in ("rans_decode_plain", "order0_plain", "order1_plain"):
+        monkeypatch.setattr(rk, name, boom)
+    cases = _rans_streams(np.random.default_rng(5))
+    plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
+    assert rd.decode_parsed(plans, device=torch.device("cuda")) \
+        == [d for d, _ in cases]

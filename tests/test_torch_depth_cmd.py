@@ -149,6 +149,34 @@ def test_excessive_coverage_golden_through_port_alone(tmp_path):
         [x for x in want_c if "600\t610" not in x]
 
 
+@pytest.mark.parametrize("method", ["gzip", "rans-nx16"])
+def test_cram_twin_of_the_golden_matches_jax(tmp_path, method):
+    """tests/test_golden_depth.py's CRAM twin of the golden read list:
+    the port's depth on it equals goleft_tpu depth's, and the golden."""
+    from goleft_tpu.io import cram as jcram
+    from goleft_tpu_torch.io.bam import BamReader
+
+    fa, bam = _golden_fixture(tmp_path)
+    reads = [(r.name, r.pos, r.cigar, r.mapq, r.flag)
+             for r in BamReader.from_file(bam)]
+    p = str(tmp_path / "g.cram")
+    kw = dict(block_method=jcram.M_RANSNX16, minor=1, rans_order=1) \
+        if method == "rans-nx16" else {}
+    with open(p, "wb") as fh:
+        with jcram.CramWriter(fh, "@HD\tVN:1.6\tSO:coordinate\n", ["chr1"],
+                              [2000], records_per_container=800, **kw) as w:
+            for name, pos, cig, mq, fl in reads:
+                w.write_record(0, pos, cig, mapq=mq, flag=fl, name=name)
+        w.write_crai(p + ".crai")
+    want = jax_run_depth(p, str(tmp_path / "j"), reference=fa, window=100,
+                         min_cov=4, mapq=1)
+    got = run_depth(p, str(tmp_path / "t"), reference=fa, window=100,
+                    min_cov=4, mapq=1, device="cpu")
+    _same_beds(want, got)
+    assert open(got[0]).read() == _golden("depth_w100.depth.bed")
+    assert open(got[1]).read() == _golden("depth_w100.callable.bed")
+
+
 @pytest.mark.parametrize("level", [0, 1])
 def test_bulk_writer_matches_build_bai_and_reader(tmp_path, level):
     from goleft_tpu_torch.io.bai import build_bai

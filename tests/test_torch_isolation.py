@@ -30,6 +30,7 @@ def _sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "tools", "bulk_bam.py")
+    yield os.path.join(ROOT, "tools", "bulk_cram.py")
 
 
 def test_sources_import_neither_jax_nor_reference():
@@ -40,7 +41,8 @@ def test_sources_import_neither_jax_nor_reference():
         assert not hits, f"{path}: {hits}"
         seen.append(os.path.relpath(path, PKG))
     assert len(seen) > 10
-    for sub in ("obs", "plan", "resilience", "models", "ops", "commands"):
+    for sub in ("obs", "plan", "resilience", "models", "ops", "commands",
+                "io", "parallel", "utils"):
         assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
@@ -113,6 +115,51 @@ def test_cpu_pairhmm_run_loads_no_jax(tmp_path):
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def test_cpu_cohortdepth_run_loads_no_jax(tmp_path):
+    """A two-sample rANS-Nx16 CRAM cohort written with the port's
+    CramWriter, through the port's cohortdepth with the device decode on
+    the CPU, in a fresh interpreter; then neither jax nor goleft_tpu is
+    loaded."""
+    script = textwrap.dedent(f"""
+        import io, sys
+        sys.path.insert(0, {ROOT!r})
+        from goleft_tpu_torch.commands.cohortdepth import run_cohortdepth
+        from goleft_tpu_torch.io.bam import parse_cigar
+        from goleft_tpu_torch.io.cram import CramWriter, M_RANSNX16
+        d = {str(tmp_path)!r}
+        paths = []
+        for k in range(2):
+            p = f"{{d}}/s{{k}}.cram"
+            with open(p, "wb") as fh:
+                with CramWriter(fh, f"@RG\\tID:r\\tSM:s{{k}}\\n", ["chr1"],
+                                [1000], records_per_container=20,
+                                block_method=M_RANSNX16, minor=1,
+                                rans_order=k) as w:
+                    for i in range(50):
+                        w.write_record(0, 10 * i + k, parse_cigar("100M"),
+                                       name=f"r{{i}}")
+                w.write_crai(p + ".crai")
+            paths.append(p)
+        with open(d + "/r.fa.fai", "w") as fh:
+            fh.write("chr1\\t1000\\t6\\t60\\t61\\n")
+        buf = io.StringIO()
+        rc = run_cohortdepth(paths, fai=d + "/r.fa.fai", window=100, out=buf,
+                             decode_device=True, device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("RC", rc, "ROWS", buf.getvalue().splitlines()[:2])
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "RC 0 ROWS ['#chrom\\tstart\\tend\\ts0\\ts1', " \
+        "'chr1\\t0\\t100\\t6\\t5']" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(device.NoCudaDevice):
@@ -151,10 +198,10 @@ def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
 
     rep = json.loads(report.read_text())
     assert rep["exit_code"] == 1
-    assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0}
+    assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0}
 
 
 def test_cli_lists_depth():
-    assert sorted(cli.PROGS) == ["depth", "pairhmm"]
+    assert sorted(cli.PROGS) == ["cohortdepth", "depth", "pairhmm"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
