@@ -46,24 +46,30 @@ Run from the root of a checkout, on a machine with one CUDA card:
 7. fabricates a CRAM cohort with tools/bulk_cram.py: 4 samples of
    200,000 reads of 150 bp with quality strings (3% MAPQ 0, 2%
    duplicates) on one 2,000,000 bp contig, 10,000 records per container,
-   rANS-Nx16 blocks ORDER0, ORDER0, ORDER1 and STRIPE 4 as the JAX
-   package's make_cram_cohort; and the matrix from the generated reads;
+   rANS-Nx16 blocks ORDER0, ORDER1, ORDER1 and STRIPE 4 (the JAX
+   package's make_cram_cohort with a second ORDER1 sample, so two sample
+   threads launch ORDER1 at once); and the matrix from the generated
+   reads;
 8. holds the rANS kernel against its plain version bitwise: N = 4 and X32
    x ORDER0 and ORDER1 x plain, RLE, PACK and RLE+PACK at the sizes of
    tests/test_rans_device.py up to 20,000 bytes, and STRIPE with uneven
-   lanes, on the card; then every launch of one real 10,000-record
+   lanes, on the card; eight threads, each on its own CUDA stream,
+   launching ORDER1 groups of seven table sizes at once, each launch
+   against the plain version; then every launch of one real 10,000-record
    container of each codec (ORDER0, ORDER1, STRIPE 4) against the plain
    version run on the host CPU on copies of the same inputs; the device
    decode (kernel, expansions, interleave) against the data and the host
    decoder; a missing ORDER1 context must raise; prints the kernel's and
-   the plain version's time per container of each codec and both bounds;
+   the plain version's time per container of each codec, its cycles a
+   round (ms x the SM clock / the longest stream's rounds; that stream
+   alone too) and both bounds;
 9. runs ``python -m goleft_tpu_torch cohortdepth --decode-device`` on the
    cohort in fresh processes, with the hybrid engine (the main path), the
    device engine, and ``GOLEFT_TPU_FAULTS=decode:after=1:transient``;
    every matrix must equal the oracle byte for byte, with no decode
    fallback and exactly the rans launches counted on the host from the
    files (per shard, the containers it decodes; per container, its
-   signature groups), whose split it prints; prints the seconds, import
+   launch groups), whose split it prints; prints the seconds, import
    seconds, stage seconds and samples x contig bp per second;
 10. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
@@ -76,11 +82,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import multiprocessing as mp
 import os
 import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -868,22 +876,32 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
 
 RANS_SIZES = [0, 1, 3, 17, 63, 64, 65, 127, 4095, 4097, 8191, 20000]
 RANS_STRIPE_SIZES = (20000, 19999, 19998, 4097, 101, 7)
-# the dependent chain of one round, in SM cycles (see PERF.md §6): the
-# shared-memory slot load (~30), the multiply-add (~6), ballot and popc
-# (~12), the 16-bit payload load from L1 (~35) and the state merge (~6)
-RANS_CYCLES_PER_ROUND = 90
+RANS_O1_SHIFTS = (10, 7)
+# the dependent chain of one N = 4 round of csrc/rans_kernel.cu, in SM
+# cycles (assumed from its instructions, see PERF.md §6). ORDER0: the next
+# slot's address (mask, shift-add, ~8), the 64-bit shared slot load (~30),
+# the frequency mask and the multiply-add (~9), the compare and the rank
+# adds (~9), the word permute, the merge permute and the select (~12).
+# ORDER1: the entry's address from the previous entry and the slot (~12),
+# the 64-bit entry load (~30), the bounds' extraction and the step check
+# (~12), the multiply-add (~9), then as ORDER0 (~21). STRIPE lanes are
+# ORDER0.
+RANS_CYCLES_PER_ROUND = {"ORDER0": 68, "ORDER1": 84, "STRIPE4": 68}
 CO_SAMPLES, CO_LEN, CO_READS = 4, 2_000_000, 200_000
 CO_RPC, CO_WINDOW = 10_000, 500
 # (rANS order, stripe lanes) per sample, as the JAX package's
-# ops/decode_smoke.py::make_cram_cohort: ORDER0, ORDER0, ORDER1, STRIPE 4
-CO_CODECS = [(0, 0), (0, 0), (1, 0), (0, 4)]
+# ops/decode_smoke.py::make_cram_cohort (ORDER0, ORDER0, ORDER1, STRIPE 4)
+# with its second sample ORDER1 too: the sample threads then launch
+# ORDER1 groups of different table sizes at once
+CO_CODECS = [(0, 0), (1, 0), (1, 0), (0, 4)]
 CO_FAULT = "decode:after=1:transient"
 
 
 def rans_flag_matrix(rng):
     """(data, stream) cases: N = 4 and X32 x ORDER0 and ORDER1 x plain,
-    RLE, PACK and RLE+PACK at tests/test_rans_device.py's sizes, and
-    STRIPE with uneven lanes (ORDER0, X32 and ORDER1 lanes)."""
+    RLE, PACK and RLE+PACK at tests/test_rans_device.py's sizes, ORDER1
+    at shifts 10 and 7 and with 256 contexts, and STRIPE with uneven lanes
+    (ORDER0, X32 and ORDER1 lanes)."""
     from goleft_tpu_torch.io import rans_nx16 as rx
 
     ramp = (np.cumsum(rng.choice([0, 0, 0, 1, 2, 5], 20000)) % 120) \
@@ -902,6 +920,17 @@ def rans_flag_matrix(rng):
                     d = d.tobytes()
                     cases.append((d, rx.encode(d, order=order, use_rle=rle,
                                                use_pack=pack, x32=x32)))
+        for shift in RANS_O1_SHIFTS:
+            for sz in RANS_SIZES[-4:]:
+                d = ramp[:sz].tobytes()
+                cases.append((d, rx.encode(d, order=1, x32=x32,
+                                           shift=shift)))
+    # 256 contexts: the widest ORDER1 table
+    wide = (np.cumsum(rng.choice([0, 1, 2, 3, 255], RANS_SIZES[-1])) % 256) \
+        .astype(np.uint8).tobytes()
+    for x32 in (False, True):
+        cases.append((wide, rx.encode(wide, order=1, x32=x32)))
+        assert cases[-1][1][0] & rx.F_ORDER1
     for sz in RANS_STRIPE_SIZES:
         for kw in (dict(stripe=4), dict(stripe=3), dict(stripe=4, x32=True),
                    dict(stripe=2, order=1)):
@@ -912,37 +941,15 @@ def rans_flag_matrix(rng):
 
 
 def rans_groups(plans, dev):
-    """Signature groups of the non-CAT streams (stripe lanes flattened),
-    as ops/rans_device.py launches them: [(sig, plans, tensors)]."""
+    """The launch groups of ops/rans_device.py (rans_device.launch_groups)
+    with their tensors on ``dev``: [(key, streams, tensors)]."""
     import torch
 
     from goleft_tpu_torch.ops import rans_device as rd
 
-    flat = []
-    for p in plans:
-        flat += p.children if p.stripe else [p]
-    groups = {}
-    for p in flat:
-        if not p.cat:
-            groups.setdefault(rd._signature(p), []).append(p)
-    out = []
-    for sig in sorted(groups):
-        host = rd._host_arrays(groups[sig], sig)
-        host["states"] = host["states"].view(np.int32)
-        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-             for k, v in host.items()}
-        out.append((sig, groups[sig], t))
-    return out
-
-
-def rans_call(fn, sig, t):
-    """rans_decode or rans_decode_plain on one group's tensors."""
-    n, order1, shift, lit_cap = sig[0], sig[2], sig[3], sig[8]
-    tables = dict(ctx_index=t["ctx_index"], ctx_freq=t["ctx_freq"],
-                  alphabet=t["alphabet"], shift=shift) if order1 \
-        else dict(freq=t["freq"])
-    return fn(t["payload"], t["plen"], t["states"], t["inner"], n_states=n,
-              out_len=lit_cap, **tables)
+    return [(key, grp, {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                        for k, v in host.items()})
+            for key, grp, host in rd.launch_groups(plans)]
 
 
 def rans_abs_err(got, want) -> int:
@@ -954,32 +961,89 @@ def rans_abs_err(got, want) -> int:
     return err
 
 
-def rans_bitwise(groups, what: str, on_host: bool = False) -> tuple:
-    """Kernel vs plain version on every group, bitwise; the plain version
-    runs on the card, or with ``on_host`` on copies of the same tensors on
-    the host CPU. Returns (groups held, max abs err, plain version's
-    seconds)."""
-    import torch
-
+def rans_bitwise(groups, what: str, wants=None) -> tuple:
+    """Kernel vs plain version on every group, bitwise: the plain version
+    runs on the card, or ``wants`` holds its results from the host CPU
+    (:func:`rans_plain_on_host`). Returns (groups held, max abs err)."""
+    from goleft_tpu_torch.ops import rans_device as rd
     from goleft_tpu_torch.ops import rans_kernel as rk
 
-    err, plain_s = 0, 0.0
-    for sig, _, t in groups:
-        got = rans_call(rk.rans_decode, sig, t)
-        if on_host:
-            t = {k: v.cpu() for k, v in t.items()}
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        want = rans_call(rk.rans_decode_plain, sig, t)
-        torch.cuda.synchronize()
-        plain_s += time.perf_counter() - t0
+    err = 0
+    for i, (key, grp, t) in enumerate(groups):
+        got = rd.group_stage(key, grp, t)
+        want = wants[i] if wants is not None else rd.group_stage(
+            key, grp, t, rk.rans_decode_plain)
         e = rans_abs_err(got, want)
         if e:
             raise AssertionError(
-                f"rans kernel ({what}, signature {sig}): differs from the "
+                f"rans kernel ({what}, group {key}): differs from the "
                 f"plain version (max abs err {e})")
         err = max(err, e)
-    return len(groups), err, plain_s
+    return len(groups), err
+
+
+def rans_plain_on_host(groups) -> tuple:
+    """The plain version of every launch group, on host-CPU copies of its
+    inputs; run in a worker process, so the three real containers'
+    comparisons (minutes each: a Python loop over 375,000 rounds) run at
+    once. Returns ([(symbols, flags)], seconds)."""
+    import torch
+
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    out = [rd.group_stage(key, grp, t, rk.rans_decode_plain)
+           for key, grp, t in groups]
+    return out, time.perf_counter() - t0
+
+
+def rans_threads_check(dev) -> tuple:
+    """Eight threads, each on its own CUDA stream as the cohort's sample
+    threads are, launch ORDER1 groups of seven table sizes (2 to 256
+    contexts: 4 KB to 199 KB of dynamic shared memory) at once, 42 each;
+    every launch against the plain version on the host CPU. Returns
+    (launches, max abs err)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    rng = np.random.default_rng(61)
+    ramp = np.cumsum(rng.choice([0, 1, 2, 3, 255], 6000)) % 256
+    groups = []
+    for a in (2, 3, 13, 39, 77, 150, 256):
+        d = (ramp % a).astype(np.uint8).tobytes()
+        p = rx.parse_nx16(rx.encode(d, order=1), len(d))
+        assert p.order1 and p.n_ctx == a, (a, p.n_ctx)
+        (key, grp, t), = rans_groups([p], dev)
+        want = rd.group_stage(key, grp, {k: v.cpu() for k, v in t.items()},
+                              rk.rans_decode_plain)
+        groups.append((key, grp, t, want))
+    torch.cuda.synchronize()
+
+    def work(i):
+        # launches queued back to back, one wait at the end: the threads'
+        # launches then overlap on the host
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            order = [(i + r) % len(groups) for r in range(42)]
+            outs = [rd.group_stage(*groups[g][:3]) for g in order]
+        s.synchronize()
+        return max(rans_abs_err(got, groups[g][3])
+                   for g, got in zip(order, outs))
+
+    with ThreadPoolExecutor(8) as pool:
+        err = max(pool.map(work, range(8)))
+    if err:
+        raise AssertionError("rans kernel: ORDER1 launches from eight "
+                             "threads differ from the plain version "
+                             f"(max abs err {err})")
+    return 8 * 42, err
 
 
 class BlockRecorder:
@@ -1035,14 +1099,14 @@ def rans_kernel_phase(dev, crams) -> dict:
     cases = rans_flag_matrix(rng)
     plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
     assert all(p is not None for p in plans)
-    held, max_err, _ = rans_bitwise(rans_groups(plans, dev), "flag matrix")
+    held, max_err = rans_bitwise(rans_groups(plans, dev), "flag matrix")
     got = rd.decode_parsed(plans, device=dev)
     bad = [i for i, ((d, _), g) in enumerate(zip(cases, got)) if g != d]
     assert not bad, f"device decode differs from the data in cases {bad}"
     coded = sum(not (c.cat or c.stripe) for c in plans) + sum(
         not ch.cat for c in plans if c.stripe for ch in c.children)
     log(f"rans kernel flag matrix: {len(cases)} streams ({coded} rANS "
-        f"streams and lanes, the rest CAT), {held} signature "
+        f"streams and lanes, the rest CAT), {held} launch "
         f"groups bitwise equal to the plain version; device decode (kernel, "
         f"RLE/PACK expansions, STRIPE interleave) equals the data "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -1055,9 +1119,9 @@ def rans_kernel_phase(dev, crams) -> dict:
     used = np.flatnonzero(p.ctx_index >= 0)
     p.ctx_index = p.ctx_index.copy()
     p.ctx_index[used[len(used) // 2]] = -1
-    (sig, _, t), = rans_groups([p], dev)
-    kb = rans_call(rk.rans_decode, sig, t)[1]
-    pb = rans_call(rk.rans_decode_plain, sig, t)[1]
+    (key, grp, t), = rans_groups([p], dev)
+    kb = rd.group_stage(key, grp, t)[1]
+    pb = rd.group_stage(key, grp, t, rk.rans_decode_plain)[1]
     assert int(kb[0]) == int(pb[0]) == 1, (kb, pb)
     try:
         rd.decode_parsed([p], device=dev)
@@ -1067,65 +1131,103 @@ def rans_kernel_phase(dev, crams) -> dict:
         raise AssertionError("a missing ORDER1 context did not raise")
     log("rans kernel: a missing ORDER1 context sets the kernel's "
         "diagnostic and raises 'rans-nx16: missing order-1 context'")
+    t0 = time.perf_counter()
+    n, err = rans_threads_check(dev)
+    max_err = max(max_err, err)
+    log(f"rans kernel: {n} ORDER1 launches of 2 to 256 contexts from eight "
+        "threads on their own streams, at once, bitwise equal to the plain "
+        f"version ({time.perf_counter() - t0:.1f} s)")
 
     out = {}
     clock = sm_clock_hz()
-    for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
-        raws = [rb for rb in first_container_blocks(crams[k])
-                if rb.method == M_RANSNX16]
-        cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
-        assert all(p is not None for p in cplans), label
-        groups = rans_groups(cplans, dev)
-        t0 = time.perf_counter()
-        dec = rd.decode_parsed(cplans, device=dev)
-        for rb, g in zip(raws, dec):
-            if g != rx.decode(rb.raw, rb.rsize):
-                raise AssertionError(f"{label} container: block "
-                                     f"{rb.content_id} differs from the "
-                                     "host decoder")
-        check_s = time.perf_counter() - t0
+    # every group of each container against the plain version, run once
+    # on the host CPU (on the card each of its rounds is a few dozen small
+    # launches, minutes at 375,000 rounds), the three containers at once
+    # in worker processes while the card times the kernel
+    pending = []
+    with ProcessPoolExecutor(3, mp_context=mp.get_context("spawn")) as pool:
+        for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
+            raws = [rb for rb in first_container_blocks(crams[k])
+                    if rb.method == M_RANSNX16]
+            cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
+            assert all(p is not None for p in cplans), label
+            groups = rans_groups(cplans, dev)
+            fut = pool.submit(rans_plain_on_host, [
+                (key, grp, {n: v.cpu() for n, v in t.items()})
+                for key, grp, t in groups])
+            t0 = time.perf_counter()
+            dec = rd.decode_parsed(cplans, device=dev)
+            for rb, g in zip(raws, dec):
+                if g != rx.decode(rb.raw, rb.rsize):
+                    raise AssertionError(f"{label} container: block "
+                                         f"{rb.content_id} differs from the "
+                                         "host decoder")
+            check_s = time.perf_counter() - t0
 
-        def launch_all():
-            for sig, _, t in groups:
-                rans_call(rk.rans_decode, sig, t)
+            def launch_all():
+                for key, grp, t in groups:
+                    rd.group_stage(key, grp, t)
 
-        ms = cuda_median_ms(launch_all, reps=5)
-        flat = [c for p in cplans for c in (p.children if p.stripe else [p])
-                if not c.cat]
-        rounds = max(rk.rounds_needed(torch.tensor([c.inner_len]),
-                                      c.n_states, c.order1) for c in flat)
-        nbytes = sum(c.payload_bytes + c.table_bytes + c.inner_len
-                     for c in flat)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = 16 * sum(c.inner_len for c in flat) / INT_OPS_PER_S * 1e3
-        res = {"ms": ms, "launches_per_container": len(groups),
-               "streams": len(flat), "longest_rounds": rounds,
-               "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "chain_bound_ms": rounds * RANS_CYCLES_PER_ROUND / clock
-               * 1e3, "sm_clock_hz": clock,
-               "qs_bytes": max(rb.rsize for rb in raws)}
-        # every group against the plain version, run once on the host
-        # CPU: on the card each of its rounds is a few dozen small
-        # launches, minutes at 375,000 rounds
-        _, err, plain_s = rans_bitwise(groups, f"{label} container",
-                                       on_host=True)
-        max_err = max(max_err, err)
-        res["plain_ms"] = plain_s * 1e3
-        res["plain_us_per_round"] = plain_s * 1e6 / rounds
-        out[label] = res
-        log(f"rans kernel, {label} container of {CO_RPC} records: "
-            f"{len(raws)} rANS blocks = {len(flat)} streams in "
-            f"{len(groups)} launches, longest {rounds} rounds; decode equals "
-            f"the host decoder ({check_s:.1f} s with the check); kernel "
-            f"median {ms:.3f} ms per container, every group bitwise equal "
-            f"to the plain version on the host CPU "
-            f"({res['plain_ms']:.1f} ms)"
-            + f"; bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
-            f"{nbytes} bytes), dependence chain "
-            f"{res['chain_bound_ms']:.3f} ms ({rounds} rounds x "
-            f"{RANS_CYCLES_PER_ROUND} cycles at {clock / 1e6:.0f} MHz); "
-            f"library: none")
+            ms = cuda_median_ms(launch_all, reps=5)
+            flat = [c for p in cplans
+                    for c in (p.children if p.stripe else [p]) if not c.cat]
+
+            def rounds_of(c):
+                return rk.rounds_needed(torch.tensor([c.inner_len]),
+                                        c.n_states, c.order1)
+
+            longest = max(flat, key=rounds_of)
+            rounds = rounds_of(longest)
+            # the longest stream alone: its rounds without the container's
+            # other launches queued before or after it on the stream
+            (lkey, lgrp, lt), = rans_groups([longest], dev)
+            lone_ms = cuda_median_ms(lambda: rd.group_stage(lkey, lgrp, lt),
+                                     reps=5)
+            nbytes = sum(c.payload_bytes + c.table_bytes + c.inner_len
+                         for c in flat)
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 16 * sum(c.inner_len for c in flat) / INT_OPS_PER_S * 1e3
+            cyc = RANS_CYCLES_PER_ROUND[label]
+            res = {"ms": ms, "launches_per_container": len(groups),
+                   "group_keys": [list(k) for k, _, _ in groups],
+                   "streams": len(flat), "longest_rounds": rounds,
+                   "cycles_per_round": ms * 1e-3 * clock / rounds,
+                   "longest_stream_ms": lone_ms,
+                   "longest_stream_cycles_per_round":
+                       lone_ms * 1e-3 * clock / rounds,
+                   "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "chain_cycles_per_round": cyc,
+                   "chain_bound_ms": rounds * cyc / clock * 1e3,
+                   "sm_clock_hz": clock,
+                   "qs_bytes": max(rb.rsize for rb in raws)}
+            out[label] = res
+            pending.append((label, groups, fut, len(raws), len(flat),
+                            check_s))
+        for label, groups, fut, n_raws, n_flat, check_s in pending:
+            wants, plain_s = fut.result()
+            _, err = rans_bitwise(groups, f"{label} container", wants)
+            max_err = max(max_err, err)
+            res = out[label]
+            rounds, cyc = res["longest_rounds"], res["chain_cycles_per_round"]
+            res["plain_ms"] = plain_s * 1e3
+            res["plain_us_per_round"] = plain_s * 1e6 / rounds
+            log(f"rans kernel, {label} container of {CO_RPC} records: "
+                f"{n_raws} rANS blocks = {n_flat} streams in "
+                f"{len(groups)} launches {res['group_keys']}, longest "
+                f"{rounds} rounds; decode equals the host decoder "
+                f"({check_s:.1f} s with the check); kernel median "
+                f"{res['ms']:.3f} ms per container = "
+                f"{res['cycles_per_round']:.1f} cycles a round at "
+                f"{clock / 1e6:.0f} MHz (the longest stream alone "
+                f"{res['longest_stream_ms']:.3f} ms = "
+                f"{res['longest_stream_cycles_per_round']:.1f} cycles a "
+                f"round), every group bitwise equal to the plain version on "
+                f"the host CPU ({res['plain_ms']:.1f} ms, in a worker "
+                f"process); bound {res['bound_ms']:.4f} ms "
+                f"({res['bound_by']}: {res['bytes']} bytes), dependence "
+                f"chain {res['chain_bound_ms']:.3f} ms ({rounds} rounds x "
+                f"{cyc} cycles); library: none")
     out["max_abs_err"] = max_err
     return out
 
@@ -1184,9 +1286,10 @@ def cohort_launch_plan(crams, fai) -> dict:
     """The rans launches a cohortdepth run makes, counted on the host from
     the files: per shard, each container the shard's .crai lookup decodes
     (one that straddles a shard boundary is decoded once per shard); per
-    container, the distinct signatures of its non-CAT rANS streams,
-    stripe lanes flattened (one launch each). → {file: {launches per
-    container: containers decoded}}."""
+    container, its launch groups (rans_device.launch_groups: one per
+    (ORDER1, N, shift) of its non-CAT rANS streams, stripe lanes
+    flattened). → {file: {launches per container: containers
+    decoded}}."""
     from collections import Counter
 
     from goleft_tpu_torch.commands.cohortdepth import cohort_regions
@@ -1206,16 +1309,14 @@ def cohort_launch_plan(crams, fai) -> dict:
             for off in cf._region_offsets(0, s, e):
                 if off not in groups_at:
                     hdr, pos = ContainerHeader.parse(cf._buf, off, False)
-                    end, sigs = pos + hdr.length, set()
+                    end, plans = pos + hdr.length, []
                     while pos < end:
                         rb, pos = read_block_raw(cf._buf, pos)
-                        p = rx.parse_nx16(rb.raw, rb.rsize) \
-                            if rb.method == M_RANSNX16 else None
-                        for q in (p.children if p.stripe else [p]) if p \
-                                else []:
-                            if not q.cat:
-                                sigs.add(rd._signature(q))
-                    groups_at[off] = len(sigs)
+                        if rb.method == M_RANSNX16:
+                            p = rx.parse_nx16(rb.raw, rb.rsize)
+                            if p is not None:
+                                plans.append(p)
+                    groups_at[off] = len(rd.launch_groups(plans))
                 split[groups_at[off]] += 1
         plan[os.path.basename(path)] = dict(sorted(split.items()))
     return plan
@@ -1259,7 +1360,6 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
         assert launches["rans"] == planned > 0, (launches, planned)
         assert c["decode.device_blocks_total"] > 0, c
         assert c["decode.device_fallback_total"] == 0, c
-        assert c["decode.bucket_cap_fallback_total"] == 0, c
         if name == "device":
             assert launches["depth"] == CO_SAMPLES, launches
         if name == "fault":
@@ -1280,8 +1380,7 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
             f"{CO_SAMPLES * CO_LEN / cmd_s / 1e6:.3f} Mbases/s "
             f"({CO_SAMPLES} samples x {CO_LEN} bp); launches {launches}; "
             f"device blocks {c['decode.device_blocks_total']}, fallbacks "
-            f"{c['decode.device_fallback_total']}, cap fallbacks "
-            f"{c['decode.bucket_cap_fallback_total']}, host blocks "
+            f"{c['decode.device_fallback_total']}, host blocks "
             f"{c['decode.host_blocks_total']}, retries "
             f"{c.get('resilience.retries_total', 0)}; stage seconds: "
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))

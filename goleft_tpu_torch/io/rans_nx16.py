@@ -468,10 +468,10 @@ def _decode_rans1(buf, pos: int, out_len: int, n_states: int) -> bytes:
     return loop(buf, pos, out_len, n_states, shift, freqs, cums, luts)
 
 
-def _rans1_table(arr: np.ndarray, n_states: int):
-    """ORDER1 tables of a stream whose lane j holds [lo[j], hi[j]):
-    (head byte + serialised table, norm[256][256], cums[256][257],
-    shift)."""
+def _rans1_table(arr: np.ndarray, n_states: int, shift: int = TF_SHIFT):
+    """ORDER1 tables of a stream whose lane j holds [lo[j], hi[j]), rows
+    normalised to 2^shift: (head byte + serialised table,
+    norm[256][256], cums[256][257], shift)."""
     n = len(arr)
     F = n // n_states
     lo = [j * F for j in range(n_states)]
@@ -482,7 +482,6 @@ def _rans1_table(arr: np.ndarray, n_states: int):
         np.add.at(counts, (prevs, arr[lo[j]:hi[j]]), 1)
     used = sorted(set(np.nonzero(counts.sum(axis=1))[0])
                   | set(np.unique(arr)))
-    shift = TF_SHIFT
     target = 1 << shift
     norm = np.zeros((256, 256), dtype=np.int64)
     cums = np.zeros((256, 257), dtype=np.int64)
@@ -512,13 +511,14 @@ def _rans1_table(arr: np.ndarray, n_states: int):
     return bytes([head]) + tbytes, norm, cums, shift
 
 
-def _encode_rans1(data: bytes, n_states: int = 4) -> bytes:
+def _encode_rans1(data: bytes, n_states: int = 4,
+                  shift: int = TF_SHIFT) -> bytes:
     n = len(data)
     arr = np.frombuffer(data, dtype=np.uint8)
     F = n // n_states
     lo = [j * F for j in range(n_states)]
     hi = [F * (j + 1) for j in range(n_states - 1)] + [n]
-    table, norm, cums, shift = _rans1_table(arr, n_states)
+    table, norm, cums, shift = _rans1_table(arr, n_states, shift)
 
     def reverse_steps():
         tail = hi[n_states - 1] - lo[n_states - 1]
@@ -1042,13 +1042,15 @@ def parse_nx16(data: bytes,
 
 def encode(data: bytes, order: int = 0, use_rle: bool = False,
            use_pack: bool = False, stripe: int = 0,
-           x32: bool = False) -> bytes:
+           x32: bool = False, shift: int = TF_SHIFT) -> bytes:
     """Encode (fixture writer + fuzz twin for the decoder). Transforms
     apply PACK → RLE → rans, the exact inverse of decode's expansion
-    order; tiny or degenerate bodies store CAT."""
+    order; tiny or degenerate bodies store CAT. ``shift`` is the ORDER1
+    frequency precision (each context row sums to 2^shift)."""
     if stripe:
         lanes = [data[j::stripe] for j in range(stripe)]
-        subs = [encode(ln, order=order, x32=x32) for ln in lanes]
+        subs = [encode(ln, order=order, x32=x32, shift=shift)
+                for ln in lanes]
         out = bytearray([F_STRIPE])
         out += write_uint7(len(data))
         out.append(stripe)
@@ -1094,7 +1096,7 @@ def encode(data: bytes, order: int = 0, use_rle: bool = False,
         flags |= F_CAT
         payload = bytes(body)
     elif flags & F_ORDER1:
-        payload = _encode_rans1(body, n_states)
+        payload = _encode_rans1(body, n_states, shift)
     else:
         payload = _encode_rans0(body, n_states)
     if not (flags & F_CAT) and len(payload) >= len(body):

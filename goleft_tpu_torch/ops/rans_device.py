@@ -9,14 +9,22 @@ the card (cumsum, searchsorted, gathers), as the JAX package left them to
 XLA outside its Pallas kernel. One device path: the JAX package's
 ``backend`` / ``interpret`` arguments have no counterpart.
 
-Blocks pad to power-of-two bucket signatures (payload length, round
-count, expansion caps) and each signature is one kernel launch over its
-blocks. The process-wide cap on distinct signatures
-(``MAX_BUCKET_SIGNATURES``) bounds XLA compiles in the JAX package; the
-port has no compile per shape but keeps the cap, its counters and its
-host decode of blocks past it, which is the reference's observable
-behaviour. The cap applies to admission only and never hides a kernel
-fault.
+Launch plan: the streams of one call (STRIPE lanes flattened) group by
+(ORDER1, N, shift), and each group is one kernel launch
+(:func:`launch_groups`). The kernel loops over each stream's own payload
+and rounds, so a group's payloads lie back to back, each at an offset
+that is a multiple of 16 bytes (the kernel's 16-byte copies), followed
+by the kernel's PAYLOAD_TAIL bytes (it copies whole chunks), and its
+ORDER1 tables are as wide as its widest (zero-frequency padding, which
+no context reaches). Output rows are as wide as the group's longest
+stream. CAT streams need no launch. Inside a group, rows sort by their
+(RLE, PACK) transforms so each expansion runs on a slice.
+
+Streams: every call runs on one CUDA stream, the caller's current one,
+or under :class:`DeviceBlockDecoder` the calling thread's own, so the
+containers of several sample threads overlap on the card. A call waits
+on its stream only, then copies all its decoded rows (and the
+diagnostics) to the host in one transfer into one pinned buffer.
 
 ``DeviceBlockDecoder`` is the CRAM-facing object: io/cram.py hands it a
 container's raw (still compressed) blocks; supported rANS blocks decode
@@ -26,6 +34,7 @@ site; everything else decodes on the host, byte-identically and counted.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import numpy as np
@@ -35,155 +44,131 @@ from ..io import rans_nx16 as _rx
 from ..device import KernelFault
 from ..io.rans_nx16 import ParsedNx16, parse_nx16
 from ..obs import get_registry
-from ..obs.logging import get_logger
-from .rans_kernel import rans_decode
+from .rans_kernel import PAYLOAD_TAIL, payload_rows, rans_decode
 
 TF_SHIFT = _rx.TF_SHIFT
 TOTFREQ = _rx.TOTFREQ
 
-log = get_logger("ops.rans_device")
-
-#: minimum pad bucket for payload/output axes (pow-2 above)
-MIN_BUCKET = 64
-
-#: process-wide cap on distinct bucket signatures (decode buckets +
-#: stripe interleave shapes), as in the JAX package; blocks whose NEW
-#: signature would exceed it decode on the host, a per-block fallback
-#: and never an error
-MAX_BUCKET_SIGNATURES = 128
-
-_SIG_LOCK = threading.Lock()
-_SEEN_SIGS: set[tuple] = set()
-_CAP_TRIPPED = False
+#: streams start in a group's payload at multiples of this many bytes:
+#: the kernel copies a payload into shared memory 16 bytes at a time
+PAYLOAD_ALIGN = 16
 
 
-def bucket(n: int, minimum: int = MIN_BUCKET) -> int:
-    b = minimum
-    while b < n:
-        b <<= 1
-    return b
-
-
-def reset_signature_registry() -> None:
-    """Test hook: forget admitted signatures."""
-    global _CAP_TRIPPED
-    with _SIG_LOCK:
-        _SEEN_SIGS.clear()
-        _CAP_TRIPPED = False
-
-
-def _admit_signatures(sigs: list[tuple]) -> bool:
-    """Admit a block's signatures against the process cap, all-or-nothing
-    (a stripe block needs every lane signature plus its interleave
-    shape). Over the cap, NEW signatures are refused and the block falls
-    back to the host codec; already-seen signatures always pass."""
-    global _CAP_TRIPPED
-    with _SIG_LOCK:
-        fresh = [s for s in dict.fromkeys(sigs) if s not in _SEEN_SIGS]
-        if not fresh:
-            return True
-        if len(_SEEN_SIGS) + len(fresh) > MAX_BUCKET_SIGNATURES:
-            if not _CAP_TRIPPED:
-                _CAP_TRIPPED = True
-                log.warning(
-                    "decode: bucket-signature cap reached (%d); new "
-                    "block shapes fall back to the host codec "
-                    "(decode.bucket_cap_fallback_total counts them)",
-                    MAX_BUCKET_SIGNATURES)
-            return False
-        _SEEN_SIGS.update(fresh)
-        get_registry().counter("decode.bucket_signatures").inc(len(fresh))
-        return True
-
-
-def _signature(p: ParsedNx16) -> tuple:
-    """Pad-to-bucket signature: every axis rounds up to a power of two.
-    ORDER1 adds (shift, n_ctx_cap) axes and widens the round count by
-    N-1 (the last lane's tail rounds beyond F)."""
-    n = p.n_states
-    lit_cap = bucket(max(p.inner_len, 1))
-    if not p.cat:
-        rounds = (lit_cap + n - 1) // n
-        lit_cap = rounds * n
-        if p.order1:
-            rounds += n - 1
-    else:
-        rounds = 0
-    p_cap = bucket(max(p.payload.shape[0], 1))
+def group_key(p: ParsedNx16) -> tuple | None:
+    """The launch a stream joins: (ORDER1, N, shift), or None for a CAT
+    stream, whose literals are its payload."""
     if p.cat:
-        p_cap = max(p_cap, lit_cap)  # CAT payload IS the literals
-    mid_cap = bucket(max(p.rle_out_len, 1)) if p.rle else lit_cap
-    out_cap = bucket(max(p.final_len, 1)) if p.pack else mid_cap
-    runs_cap = bucket(len(p.rle_runs) if p.rle_runs is not None
-                      else 0, minimum=16)
-    shift = p.shift if p.order1 else TF_SHIFT
-    n_ctx_cap = bucket(max(p.n_ctx, 1), minimum=16) if p.order1 else 1
-    return (n, p.cat, p.order1, shift, p.rle, p.pack, rounds, p_cap,
-            lit_cap, mid_cap, out_cap, runs_cap, n_ctx_cap)
+        return None
+    return (bool(p.order1), p.n_states, p.shift if p.order1 else TF_SHIFT)
 
 
-def _stripe_shape(p: ParsedNx16) -> tuple[int, int, int]:
-    """(n_lanes, lane_cap, out_cap) of a stripe container's interleave."""
-    lane_cap = bucket(max((p.final_len + p.n_lanes - 1) // p.n_lanes, 1))
-    return (p.n_lanes, lane_cap, bucket(max(p.final_len, 1)))
+def _flatten(plans: list[ParsedNx16]) -> list[ParsedNx16]:
+    """STRIPE containers replaced by their lane streams."""
+    return [c for p in plans for c in (p.children or [] if p.stripe
+                                       else [p])]
 
 
-def plan_signatures(p: ParsedNx16) -> list[tuple]:
-    """Every signature decoding this block requires (a stripe container
-    needs each lane's bucket plus its interleave shape): the admission
-    unit for the ``MAX_BUCKET_SIGNATURES`` cap."""
-    if p.stripe:
-        sigs = [_signature(ch) for ch in p.children or []]
-        sigs.append(("ilv",) + _stripe_shape(p))
-        return sigs
-    return [_signature(p)]
+def _grouped(plans: list[ParsedNx16]) -> list[tuple]:
+    """[(key, indices)] over ``plans`` (no STRIPE containers), CAT first,
+    then the kernel groups in key order; inside a group the indices sort
+    by (RLE, PACK), so each transform's rows are one slice."""
+    groups: dict = {}
+    for i, p in enumerate(plans):
+        groups.setdefault(group_key(p), []).append(i)
+    return [(k, sorted(groups[k], key=lambda i: (plans[i].rle,
+                                                 plans[i].pack)))
+            for k in sorted(groups, key=lambda k: (k is not None, k or ()))]
 
 
-def _host_arrays(grp: list[ParsedNx16], sig: tuple) -> dict:
-    """One bucket's padded host arrays (the wire layout)."""
-    (n, cat, order1, _shift, rle, pack, _rounds, p_cap, _lit_cap,
-     _mid_cap, _out_cap, runs_cap, n_ctx_cap) = sig
+def lit_width(grp: list[ParsedNx16]) -> int:
+    """Columns of a group's literal rows: its longest inner length."""
+    return max(max(p.inner_len for p in grp), 1)
+
+
+def _host_arrays(grp: list[ParsedNx16], key: tuple | None) -> dict:
+    """One group's host arrays (the wire layout): the payloads back to
+    back, stream j from byte 16·poff[j] on, then the kernel's
+    PAYLOAD_TAIL zero bytes; ORDER1 tables as wide as the group's
+    widest."""
     B = len(grp)
-    host = dict(payload=np.zeros((B, p_cap), np.uint8),
-                plen=np.zeros(B, np.int32), inner=np.zeros(B, np.int32),
+    lens = np.array([p.payload.shape[0] for p in grp], np.int64)
+    units = -(-lens // PAYLOAD_ALIGN)  # the 16-byte units of each stream
+    host = dict(payload=np.zeros(int(units.sum()) * PAYLOAD_ALIGN
+                                 + PAYLOAD_TAIL, np.uint8),
+                poff=(np.cumsum(units) - units).astype(np.int32),
+                plen=lens.astype(np.int32), inner=np.zeros(B, np.int32),
                 final=np.zeros(B, np.int32))
-    if not cat:
+    if key is not None:
+        order1, n, _shift = key
+        n_ctx = max(p.n_ctx for p in grp) if order1 else 0
         host["states"] = np.zeros((B, n), np.uint32)
         if order1:
             host["ctx_index"] = np.full((B, 256), -1, np.int16)
-            host["ctx_freq"] = np.zeros((B, n_ctx_cap, n_ctx_cap), np.int16)
-            host["alphabet"] = np.zeros((B, n_ctx_cap), np.int16)
+            host["ctx_freq"] = np.zeros((B, n_ctx, n_ctx), np.int16)
+            host["alphabet"] = np.zeros((B, n_ctx), np.int16)
         else:
             host["freq"] = np.zeros((B, 256), np.int16)
-    if rle:
+    if any(p.rle for p in grp):
+        runs_w = max(max(len(p.rle_runs) for p in grp if p.rle), 1)
         host["rle_tab"] = np.zeros((B, 256), bool)
-        host["runs"] = np.zeros((B, runs_cap), np.int32)
+        host["runs"] = np.zeros((B, runs_w), np.int32)
         host["rle_out"] = np.zeros(B, np.int32)
-    if pack:
+    if any(p.pack for p in grp):
         host["pmap"] = np.zeros((B, 16), np.int32)
         host["bits"] = np.zeros(B, np.int32)
     for j, p in enumerate(grp):
-        host["payload"][j, :p.payload.shape[0]] = p.payload
-        host["plen"][j] = p.payload.shape[0]
+        o = int(host["poff"][j]) * PAYLOAD_ALIGN
+        host["payload"][o:o + p.payload.shape[0]] = p.payload
         host["inner"][j] = p.inner_len
         host["final"][j] = p.final_len
-        if not cat:
+        if key is not None:
             host["states"][j] = p.states
             if order1:
+                c = p.n_ctx
                 host["ctx_index"][j] = p.ctx_index
-                host["ctx_freq"][j, :p.n_ctx, :p.n_ctx] = \
-                    p.ctx_freq.astype(np.int16)
-                host["alphabet"][j, :p.n_ctx] = p.alphabet
+                host["ctx_freq"][j, :c, :c] = p.ctx_freq
+                host["alphabet"][j, :c] = p.alphabet
             else:
                 host["freq"][j] = p.freq.astype(np.int16)
-        if rle:
+        if p.rle:
             host["rle_tab"][j] = p.rle_tab
             host["runs"][j, :len(p.rle_runs)] = p.rle_runs
             host["rle_out"][j] = p.rle_out_len
-        if pack:
+        if p.pack:
             host["pmap"][j] = p.pack_map
             host["bits"][j] = p.pack_bits
+    if key is not None:
+        host["states"] = host["states"].view(np.int32)  # the uint32 bits
     return host
+
+
+def launch_groups(plans: list[ParsedNx16]) -> list[tuple]:
+    """The kernel launches that decoding ``plans`` makes, one per
+    (ORDER1, N, shift) group of their non-CAT streams (STRIPE
+    lanes flattened): [(key, the group's streams, its host arrays)], in
+    launch order. :func:`group_stage` runs one of them."""
+    flat = _flatten(plans)
+    out = []
+    for key, idxs in _grouped(flat):
+        if key is not None:
+            grp = [flat[i] for i in idxs]
+            out.append((key, grp, _host_arrays(grp, key)))
+    return out
+
+
+def group_stage(key: tuple, grp: list[ParsedNx16], t: dict,
+                fn=rans_decode):
+    """The rANS stage of one launch group, on its arrays ``t`` (host
+    arrays as tensors, where the call should run): ``fn`` is
+    :func:`~.rans_kernel.rans_decode` (the kernel on the card) or
+    :func:`~.rans_kernel.rans_decode_plain`. Returns (literals (B,
+    lit_width) u8, missing-context flags (B,) i32 or None)."""
+    order1, n, shift = key
+    tables = dict(ctx_index=t["ctx_index"], ctx_freq=t["ctx_freq"],
+                  alphabet=t["alphabet"], shift=shift) if order1 \
+        else dict(freq=t["freq"])
+    return fn(t["payload"], t["poff"], t["plen"], t["states"], t["inner"],
+              n_states=n, out_len=lit_width(grp), **tables)
 
 
 def _expand_rle(lit, inner, rle_tab, runs, rle_out, mid_cap: int):
@@ -229,50 +214,57 @@ def _expand_pack(mid, pmap, bits, final, out_cap: int):
     return outb.to(torch.uint8), vmax
 
 
-def _decode_group(dev: dict, sig: tuple):
-    """One bucket on the card: the kernel (or the CAT literals), then the
-    expansions. Returns (out (B, out_cap) u8, diag (B, 4) int64:
-    [rle_total, marked_total, pack_vmax, missing_ctx])."""
-    (n, cat, order1, shift, rle, pack, _rounds, _p_cap, lit_cap, mid_cap,
-     out_cap, _runs_cap, _n_ctx_cap) = sig
-    inner = dev["inner"]
+def _decode_group(key, grp: list[ParsedNx16], t: dict) -> list:
+    """One group on the device: the kernel (or the CAT literals), then
+    the expansions, each on the slice of rows that has it. Returns
+    [(row slice, out (b, w) u8, diag (b, 4) int64: [rle_total,
+    marked_total, pack_vmax, missing_ctx])]."""
+    inner = t["inner"]
     B = inner.shape[0]
     zeros = torch.zeros(B, dtype=torch.int64, device=inner.device)
     bad = zeros
-    if cat:
-        lit = dev["payload"][:, :lit_cap]
-    elif order1:
-        lit, bad = rans_decode(
-            dev["payload"], dev["plen"], dev["states"], inner, n_states=n,
-            out_len=lit_cap, ctx_index=dev["ctx_index"],
-            ctx_freq=dev["ctx_freq"], alphabet=dev["alphabet"], shift=shift)
+    if key is None:  # a CAT payload is its literals
+        lit = payload_rows(t["payload"], t["poff"], t["plen"],
+                           lit_width(grp))
     else:
-        lit, _ = rans_decode(dev["payload"], dev["plen"], dev["states"],
-                             inner, n_states=n, out_len=lit_cap,
-                             freq=dev["freq"])
-    if rle:
-        mid, rle_total, marked_total = _expand_rle(
-            lit, inner, dev["rle_tab"], dev["runs"], dev["rle_out"],
-            mid_cap)
-    else:
-        mid, rle_total, marked_total = lit, inner.to(torch.int64), zeros
-    if pack:
-        out, vmax = _expand_pack(mid, dev["pmap"], dev["bits"],
-                                 dev["final"], out_cap)
-    else:
-        out, vmax = mid, zeros
-    diag = torch.stack([rle_total.to(torch.int64), marked_total,
-                        vmax.to(torch.int64), bad.to(torch.int64)], 1)
-    return out, diag
+        lit, flags = group_stage(key, grp, t)
+        if flags is not None:
+            bad = flags.to(torch.int64)
+    parts = []
+    a = 0
+    while a < B:
+        rle, pack = grp[a].rle, grp[a].pack
+        e = a
+        while e < B and (grp[e].rle, grp[e].pack) == (rle, pack):
+            e += 1
+        sub = slice(a, e)
+        cur, n_in, z = lit[sub], inner[sub], zeros[sub]
+        if rle:
+            cur, rle_total, marked = _expand_rle(
+                cur, n_in, t["rle_tab"][sub], t["runs"][sub],
+                t["rle_out"][sub],
+                max(max(p.rle_out_len for p in grp[sub]), 1))
+        else:
+            rle_total, marked = n_in.to(torch.int64), z
+        vmax = z
+        if pack:
+            cur, vmax = _expand_pack(cur, t["pmap"][sub], t["bits"][sub],
+                                     t["final"][sub],
+                                     max(max(p.final_len for p in grp[sub]),
+                                         1))
+        diag = torch.stack([rle_total.to(torch.int64), marked,
+                            vmax.to(torch.int64), bad[sub]], 1)
+        parts.append((sub, cur, diag))
+        a = e
+    return parts
 
 
-def _check_diag(p: ParsedNx16, sig: tuple, diag) -> None:
+def _check_diag(p: ParsedNx16, diag) -> None:
     """The JAX package's per-block diagnostics, word for word."""
-    order1, rle, pack = sig[2], sig[4], sig[5]
-    if order1 and int(diag[3]):
+    if p.order1 and int(diag[3]):
         raise ValueError(
             "rans-nx16: missing order-1 context")
-    if rle:
+    if p.rle:
         if int(diag[0]) != p.rle_out_len:
             raise ValueError(
                 "rans-nx16: rle expansion length mismatch")
@@ -280,129 +272,127 @@ def _check_diag(p: ParsedNx16, sig: tuple, diag) -> None:
                 and int(diag[1]) > len(p.rle_runs):
             raise ValueError(
                 "rans-nx16: rle metadata exhausted")
-    if pack and p.pack_bits > 0 \
+    if p.pack and p.pack_bits > 0 \
             and int(diag[2]) >= p.pack_nsym:
         raise ValueError(
             "rans-nx16: pack index out of range")
 
 
-def _sync(device) -> None:
-    """Wait for the card's queued work. An error a kernel left on the
-    card surfaces here as :class:`KernelFault`, not as a plain
-    RuntimeError at the next copy, which the retry policy would take for
-    transient and the sample Step would quarantine."""
-    if device.type != "cuda":
+def _sync(stream) -> None:
+    """Wait for the work queued on ``stream`` (None on the CPU). An error
+    a kernel left on the card surfaces here as :class:`KernelFault`, not
+    as a plain RuntimeError at the next copy, which the retry policy
+    would take for transient and the sample Step would quarantine."""
+    if stream is None:
         return
     try:
-        torch.cuda.synchronize(device)
+        stream.synchronize()
     except RuntimeError as e:
         raise KernelFault(f"rans decode failed on the card: {e}") from e
 
 
-def _decode_flat(plans: list[ParsedNx16], device) -> list:
-    """The bucketed dispatch over non-stripe plans: one kernel launch per
-    signature. Each bucket's host arrays are staged through
-    parallel.prefetch.stage_block_arrays (pinned buffers, counted), the
-    uint32 states as their int32 bits. Returns each plan's decoded device
-    row (valid through its final_len); the diagnostics are checked here,
-    after one fetch of all of them."""
+def _decode_flat(plans: list[ParsedNx16], device) -> tuple[list, list]:
+    """The grouped dispatch over non-stripe plans: one kernel launch per
+    (ORDER1, N, shift) group. Each group's host arrays are staged
+    through parallel.prefetch.stage_block_arrays (pinned buffers,
+    counted). Returns (each plan's decoded device row, valid through its
+    final_len; [(plan indices, their diag rows)])."""
     from ..parallel.prefetch import stage_block_arrays
 
-    results: list = [None] * len(plans)
-    groups: dict[tuple, list[int]] = {}
-    for i, p in enumerate(plans):
-        groups.setdefault(_signature(p), []).append(i)
-    pending = []
-    for sig in sorted(groups):
-        idxs = groups[sig]
-        host = _host_arrays([plans[i] for i in idxs], sig)
-        if "states" in host:
-            host["states"] = host["states"].view(np.int32)
-        out, diag = _decode_group(stage_block_arrays(host, device), sig)
-        pending.append((sig, idxs, out, diag))
-    if not pending:
-        return results
-    _sync(device)
-    diags = torch.cat([d for *_, d in pending]).cpu().numpy()
-    k = 0
-    for sig, idxs, out, _ in pending:
-        for j, i in enumerate(idxs):
-            _check_diag(plans[i], sig, diags[k])
-            results[i] = out[j]
-            k += 1
-    return results
+    rows: list = [None] * len(plans)
+    diags = []
+    for key, idxs in _grouped(plans):
+        grp = [plans[i] for i in idxs]
+        t = stage_block_arrays(_host_arrays(grp, key), device)
+        for sub, out, diag in _decode_group(key, grp, t):
+            for j, i in enumerate(idxs[sub]):
+                rows[i] = out[j]
+            diags.append((idxs[sub], diag))
+    return rows, diags
 
 
-def _interleave(lanes_arr, final, n_lanes: int, out_cap: int):
-    """Batched STRIPE reassembly: (B, n_lanes, lane_cap) lane bytes →
-    (B, out_cap); output position i comes from lane i mod N' at offset
-    i // N'."""
-    idx = torch.arange(out_cap, device=lanes_arr.device)
-    # positions past final_len are masked; clamp their offsets in range
+def _interleave(lanes_arr, n_lanes: int, out_w: int):
+    """Batched STRIPE reassembly: (B, n_lanes, lane_w) lane bytes →
+    (B, out_w); output position i comes from lane i mod N' at offset
+    i // N'. Positions past a stream's final_len are not read."""
+    idx = torch.arange(out_w, device=lanes_arr.device)
     off = torch.clamp(idx // n_lanes, max=lanes_arr.shape[2] - 1)
-    out = lanes_arr[:, idx % n_lanes, off]
-    return torch.where(idx[None, :] < final[:, None], out, 0)
+    return lanes_arr[:, idx % n_lanes, off]
 
 
-def decode_parsed(plans: list[ParsedNx16], *, device=None) -> list[bytes]:
+def decode_parsed(plans: list[ParsedNx16], *, device=None,
+                  stream=None) -> list[bytes]:
     """Decode parsed streams on the card (``device``; the CPU runs the
-    kernel's plain version), bucketed; returns bytes per stream,
+    kernel's plain version), grouped; returns bytes per stream,
     byte-identical to ``rans_nx16.decode``.
 
-    STRIPE containers flatten into their lane sub-streams (decoded
-    through the same buckets as standalone blocks) and reassemble with one
-    batched interleave gather per stripe shape; lane rows stay on the
-    card in between."""
+    Every launch, expansion and copy goes on ``stream`` (default: the
+    current stream of ``device``); the call waits on it alone. STRIPE
+    containers flatten into their lane streams (decoded in the same
+    groups as standalone blocks) and reassemble with one batched
+    interleave gather per lane count; lane rows stay on the card in
+    between. The decoded rows and the diagnostics come back in one
+    transfer."""
     from ..device import resolve_device
 
     device = resolve_device(device)
-    flat: list[ParsedNx16] = []
-    spec: list[tuple] = []
-    for p in plans:
-        if p.stripe:
-            idxs = []
-            for ch in p.children or []:
-                idxs.append(len(flat))
-                flat.append(ch)
-            spec.append(("stripe", idxs, p))
-        else:
-            spec.append(("plain", len(flat), p))
-            flat.append(p)
-    decoded = _decode_flat(flat, device)
-
-    rows: list = [None] * len(plans)
-    stripe_groups: dict[tuple, list[int]] = {}
-    for i, entry in enumerate(spec):
-        if entry[0] == "plain":
-            rows[i] = decoded[entry[1]]
-        else:
-            stripe_groups.setdefault(_stripe_shape(entry[2]), []).append(i)
-    for shape in sorted(stripe_groups):
-        n_lanes, lane_cap, out_cap = shape
-        members = stripe_groups[shape]
-        lane_rows = []
-        for i in members:
-            for k in spec[i][1]:
-                # a lane row is valid through the lane's final_len, and
-                # the interleave never reads past it for output
-                # positions < final_len
-                r = decoded[k]
-                if r.shape[0] >= lane_cap:
-                    r = r[:lane_cap]
-                else:
-                    r = torch.nn.functional.pad(r, (0, lane_cap - r.shape[0]))
-                lane_rows.append(r)
-        lanes_arr = torch.stack(lane_rows).reshape(len(members), n_lanes,
-                                                   lane_cap)
-        final = torch.tensor([spec[i][2].final_len for i in members],
-                             dtype=torch.int64, device=device)
-        out = _interleave(lanes_arr, final, n_lanes, out_cap)
-        for b, i in enumerate(members):
-            rows[i] = out[b]
-    _sync(device)
+    if device.type == "cuda":
+        stream = stream or torch.cuda.current_stream(device)
+        ctx = torch.cuda.stream(stream)
+    else:
+        stream, ctx = None, contextlib.nullcontext()
+    flat = _flatten(plans)
+    with ctx:
+        decoded, diags = _decode_flat(flat, device)
+        rows: list = []
+        stripes: dict[int, list[int]] = {}
+        k = 0
+        for i, p in enumerate(plans):
+            if p.stripe:
+                n = len(p.children or [])
+                stripes.setdefault(n, []).append(i)
+                rows.append(decoded[k:k + n])
+                k += n
+            else:
+                rows.append(decoded[k])
+                k += 1
+        for n_lanes in sorted(stripes):
+            members = stripes[n_lanes]
+            lane_w = max(max((c.final_len for i in members
+                              for c in plans[i].children), default=1), 1)
+            lanes = [torch.nn.functional.pad(r[:lane_w],
+                                             (0, lane_w - min(r.shape[0],
+                                                              lane_w)))
+                     for i in members for r in rows[i]]
+            out = _interleave(
+                torch.stack(lanes).reshape(len(members), n_lanes, lane_w),
+                n_lanes, max(max(plans[i].final_len for i in members), 1))
+            for b, i in enumerate(members):
+                rows[i] = out[b]
+        # one transfer: the diagnostics (8-byte aligned first), then
+        # every row's bytes
+        parts = [d.contiguous().view(torch.uint8).reshape(-1)
+                 for _, d in diags]
+        parts += [r[:p.final_len] for p, r in zip(plans, rows)]
+        n_diag = 32 * sum(len(ix) for ix, _ in diags)
+        host = torch.empty(n_diag + sum(p.final_len for p in plans),
+                           dtype=torch.uint8,
+                           pin_memory=stream is not None)
+        if parts:
+            host.copy_(torch.cat(parts), non_blocking=True)
+    _sync(stream)
+    buf = host.numpy()
+    diag_rows = buf[:n_diag].view(np.int64).reshape(-1, 4)
+    k = 0
+    for idxs, _ in diags:
+        for i in idxs:
+            _check_diag(flat[i], diag_rows[k])
+            k += 1
+    k = n_diag
     results = []
-    for p, r in zip(plans, rows):
-        results.append(bytes(r[:p.final_len].cpu().numpy()))
+    for p in plans:
+        results.append(buf[k:k + p.final_len].tobytes())
+        k += p.final_len
     return results
 
 
@@ -410,16 +400,15 @@ def decode_streams(datas: list[bytes],
                    expected_lens: list[int | None] | None = None,
                    *, device=None) -> list[bytes | None]:
     """Parse + device-decode many standalone Nx16 streams; None marks a
-    stream that stays on the host (unsupported/corrupt layout, or a new
-    bucket shape past the signature cap: the caller falls back to
-    ``rans_nx16.decode``)."""
+    stream that stays on the host (an unsupported or corrupt layout: the
+    caller falls back to ``rans_nx16.decode``)."""
     if expected_lens is None:
         expected_lens = [None] * len(datas)
     plans, order = [], []
     results: list[bytes | None] = [None] * len(datas)
     for i, (d, el) in enumerate(zip(datas, expected_lens)):
         p = parse_nx16(d, el)
-        if p is not None and _admit_signatures(plan_signatures(p)):
+        if p is not None:
             plans.append(p)
             order.append(i)
     decoded = decode_parsed(plans, device=device)
@@ -433,15 +422,14 @@ class DeviceBlockDecoder:
 
     io/cram.py hands :meth:`decode_blocks` one container's raw (still
     compressed) blocks. rANS-Nx16 blocks decode on the card in one
-    bucketed dispatch, the full method-5 matrix (ORDER0/ORDER1 ×
+    grouped dispatch, the full method-5 matrix (ORDER0/ORDER1 ×
     CAT/PACK/RLE/NOSZ/STRIPE, N=4/X32), as a content-keyed plan Step at
     the ``decode`` fault site (span ``decode.device``), so a transient
     fault costs one backoff and the per-sample quarantine above composes
-    unchanged. Host decodes: corrupt or foreign rANS streams and new
-    bucket shapes past ``MAX_BUCKET_SIGNATURES``
-    (``decode.device_fallback_total``; cap refusals also in
-    ``decode.bucket_cap_fallback_total``), and non-rANS methods
-    (``decode.host_blocks_total``).
+    unchanged. Each calling thread decodes on its own CUDA stream, so
+    the sample threads' containers overlap on the card. Host decodes:
+    corrupt or foreign rANS streams (``decode.device_fallback_total``)
+    and non-rANS methods (``decode.host_blocks_total``).
 
     Wire accounting: compressed payload plus the table arrays cross to
     the card instead of the inflated bytes
@@ -457,15 +445,24 @@ class DeviceBlockDecoder:
 
         self.device = resolve_device(device)
         self._pex = Executor()
+        self._local = threading.local()
         reg = get_registry()
         self._c_dev = reg.counter("decode.device_blocks_total")
         self._c_fall = reg.counter("decode.device_fallback_total")
-        self._c_cap = reg.counter("decode.bucket_cap_fallback_total")
         self._c_host = reg.counter("decode.host_blocks_total")
         self._c_wire_c = reg.counter("decode.wire_bytes_compressed_total")
         self._c_wire_u = reg.counter(
             "decode.wire_bytes_uncompressed_total")
         self._c_table = reg.counter("decode.table_bytes_total")
+
+    def _stream(self):
+        """The calling thread's CUDA stream (None on the CPU)."""
+        if self.device.type != "cuda":
+            return None
+        s = getattr(self._local, "stream", None)
+        if s is None:
+            s = self._local.stream = torch.cuda.Stream(self.device)
+        return s
 
     def decode_blocks(self, raws) -> list[bytes]:
         """raw blocks (io.cram.RawBlock) → uncompressed bytes, in order;
@@ -480,11 +477,9 @@ class DeviceBlockDecoder:
             if rb.method == _cram.M_RANSNX16:
                 p = parse_nx16(rb.raw, rb.rsize)
                 if p is not None:
-                    if _admit_signatures(plan_signatures(p)):
-                        plans.append(p)
-                        order.append(i)
-                        continue
-                    self._c_cap.inc()
+                    plans.append(p)
+                    order.append(i)
+                    continue
                 self._c_fall.inc()
             elif rb.method != _cram.M_RAW:
                 self._c_host.inc()
@@ -500,10 +495,12 @@ class DeviceBlockDecoder:
             # the table CRC joins the content key: the same payload
             # bytes under another table are another decode
             key = ("decode", len(plans), wire_c, crc, tcrc)
+            stream = self._stream()
             decoded = self._pex.run(Step(
                 key=key, site="decode", span="decode.device",
                 attrs={"blocks": len(plans), "wire_bytes": wire_c},
-                fn=lambda: decode_parsed(plans, device=self.device)))
+                fn=lambda: decode_parsed(plans, device=self.device,
+                                         stream=stream)))
             self._c_dev.inc(len(plans))
             self._c_wire_c.inc(wire_c)
             self._c_wire_u.inc(wire_u)

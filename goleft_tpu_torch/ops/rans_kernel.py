@@ -3,9 +3,10 @@
 
 The counterpart of the JAX package's ops/rans_device.py::pallas_decode0
 (the TPU kernel of the ORDER0 stage) and of the ORDER1 branch of its XLA
-scan ``_decode_bucket_impl``. Inputs are one bucket of parsed streams
-(io/rans_nx16.py::ParsedNx16) padded to a common shape; outputs are the
-decoded symbols of each stream in linear order, zero past its
+scan ``_decode_bucket_impl``. Inputs are one launch group of parsed
+streams (io/rans_nx16.py::ParsedNx16): their payloads back to back at
+16-byte-aligned offsets, their tables padded to a common shape; outputs
+are the decoded symbols of each stream in linear order, zero past its
 ``inner_len``, and for ORDER1 the missing-context diagnostic. See the
 source's header for the design.
 
@@ -30,6 +31,9 @@ TOTFREQ = 1 << TF_SHIFT
 RANS_LOW = 1 << 15
 #: most contexts an ORDER1 table holds (csrc/rans_kernel.cu MAX_CTX)
 MAX_CTX = 256
+#: bytes a launch group's payload buffer runs on past every stream's end:
+#: the kernel copies whole 4 KB chunks, two ahead (csrc/rans_kernel.cu RING)
+PAYLOAD_TAIL = 8192
 _M32 = 0xFFFFFFFF
 
 NVCC_FLAGS = list(_nvcc.BASE_FLAGS)
@@ -52,11 +56,11 @@ def load_library() -> ctypes.CDLL:
         lib, BUILD_LOG = _nvcc.build("rans_kernel.cu", NVCC_FLAGS,
                                      "rans kernel")
         p, i32, lng = ctypes.c_void_p, ctypes.c_int, ctypes.c_long
-        lib.rans_order0_launch.argtypes = [p, lng, p, p, p, p, i32, i32, p,
-                                           lng, p]
+        lib.rans_order0_launch.argtypes = [p, lng, p, p, p, p, p, i32,
+                                           i32, p, lng, p]
         lib.rans_order0_launch.restype = ctypes.c_int
-        lib.rans_order1_launch.argtypes = [p, lng, p, p, p, p, p, i32, p,
-                                           i32, i32, i32, p, lng, p, p]
+        lib.rans_order1_launch.argtypes = [p, lng, p, p, p, p, p, p, i32,
+                                           p, i32, i32, i32, p, lng, p, p]
         lib.rans_order1_launch.restype = ctypes.c_int
         lib.rans_kernel_error_string.argtypes = [ctypes.c_int]
         lib.rans_kernel_error_string.restype = ctypes.c_char_p
@@ -75,6 +79,19 @@ def rounds_needed(inner_len: torch.Tensor, n_states: int,
     if order1:
         return int((n // n_states + n % n_states).max())
     return int(((n + n_states - 1) // n_states).max())
+
+
+def payload_rows(payload, poff, plen, width: int) -> torch.Tensor:
+    """(B, width) u8: stream b's bytes, payload[16·poff[b]:][:plen[b]],
+    zero past plen[b], from the ragged payload of a launch group. Reads
+    nothing back from the device."""
+    col = torch.arange(width, device=payload.device)[None, :]
+    ok = col < plen[:, None]
+    if payload.numel() == 0:
+        return torch.zeros(ok.shape, dtype=torch.uint8, device=ok.device)
+    rows = payload[torch.where(ok, poff.to(torch.int64)[:, None] * 16 + col,
+                               0)]
+    return torch.where(ok, rows, 0).to(torch.uint8)
 
 
 # ---- plain PyTorch version -------------------------------------------
@@ -207,26 +224,40 @@ def _check(t: torch.Tensor, dtype, name: str, shape: tuple):
                          f"got {tuple(t.shape)}")
 
 
-def rans_decode(payload, plen, states, inner_len, *, n_states: int,
+def rans_decode(payload, poff, plen, states, inner_len, *, n_states: int,
                 out_len: int, freq=None, ctx_index=None, ctx_freq=None,
                 alphabet=None, shift: int = TF_SHIFT):
-    """Decode the rANS stage of B streams of one bucket.
+    """Decode the rANS stage of B streams of one launch group.
 
-    payload u8 (B, P); plen, inner_len i32 (B,); states i32 (B, N) holding
-    the uint32 bits; ORDER0: freq i16 (B, 256); ORDER1: ctx_index i16
-    (B, 256), ctx_freq i16 (B, C, C), alphabet i16 (B, C) and ``shift``.
+    payload u8 (P,), 16-byte aligned with P a multiple of 16, holds the
+    streams back to back: stream b is plen[b] bytes from byte
+    16·poff[b] on (poff i32 (B,), in 16-byte units: the kernel copies a
+    stream into shared memory 16 bytes at a time, and reads its 16-bit
+    words at even offsets only: the read pointer starts at 0 and moves
+    by whole words), and the buffer runs on ``PAYLOAD_TAIL`` bytes past
+    every stream's end (the kernel copies whole chunks; on the card a
+    launch traps on a shorter buffer, and the wait on its stream,
+    ``rans_device._sync``, raises ``KernelFault``);
+    plen, inner_len i32 (B,); states i32 (B, N) holding the uint32 bits;
+    ORDER0: freq i16 (B, 256); ORDER1: ctx_index i16 (B, 256), ctx_freq
+    i16 (B, C, C), alphabet i16 (B, C) and ``shift``.
     ``out_len`` must cover every inner_len (the kernel drops symbols past
     it). Returns ((B, out_len) u8
     symbols, zero past each inner_len; (B,) i32 missing-context flags for
     ORDER1, None for ORDER0)."""
     order1 = ctx_freq is not None
-    B = payload.shape[0]
-    _check(payload, torch.uint8, "payload", (B, payload.shape[1]))
+    B = plen.shape[0]
+    _check(payload, torch.uint8, "payload", (payload.numel(),))
+    _check(poff, torch.int32, "poff", (B,))
     _check(plen, torch.int32, "plen", (B,))
     _check(inner_len, torch.int32, "inner_len", (B,))
     _check(states, torch.int32, "states", (B, n_states))
     if n_states not in (4, 32):
         raise ValueError(f"rans: n_states must be 4 or 32, not {n_states}")
+    if payload.numel() % 16 or payload.data_ptr() % 16:
+        raise ValueError("rans: the payload must start 16-byte aligned "
+                         "and be a multiple of 16 bytes long (got "
+                         f"{payload.numel()} bytes at {payload.data_ptr()})")
     if order1:
         C = ctx_freq.shape[1]
         if not 1 <= C <= MAX_CTX or not 1 <= shift <= TF_SHIFT:
@@ -240,55 +271,70 @@ def rans_decode(payload, plen, states, inner_len, *, n_states: int,
         _check(freq, torch.int16, "freq", (B, 256))
         tables = (freq,)
     dev = payload.device
-    if any(t.device != dev for t in (plen, states, inner_len, *tables)):
+    if any(t.device != dev
+           for t in (poff, plen, states, inner_len, *tables)):
         raise ValueError("rans kernel: inputs on different devices")
     if dev.type == "cpu":
         return rans_decode_plain(
-            payload, plen, states, inner_len, n_states=n_states,
+            payload, poff, plen, states, inner_len, n_states=n_states,
             out_len=out_len, freq=freq, ctx_index=ctx_index,
             ctx_freq=ctx_freq, alphabet=alphabet, shift=shift)
-    return _launch(order1, payload, plen, states, inner_len, tables,
+    return _launch(order1, payload, poff, plen, states, inner_len, tables,
                    n_states, out_len, shift)
 
 
-def rans_decode_plain(payload, plen, states, inner_len, *, n_states: int,
-                      out_len: int, freq=None, ctx_index=None,
-                      ctx_freq=None, alphabet=None, shift: int = TF_SHIFT):
+def rans_decode_plain(payload, poff, plen, states, inner_len, *,
+                      n_states: int, out_len: int, freq=None,
+                      ctx_index=None, ctx_freq=None, alphabet=None,
+                      shift: int = TF_SHIFT):
     """The plain PyTorch version of :func:`rans_decode`, run where the
-    tensors lie (the CPU path, and the card's comparisons)."""
+    tensors lie (the CPU path, and the card's comparisons): the streams
+    cut out of the payload as rows as wide as the longest, rounded up to
+    16 bytes."""
+    end = poff.to(torch.int64) * 16 + plen + PAYLOAD_TAIL
+    if plen.numel() and int(end.max()) > payload.numel():
+        raise ValueError("rans: a stream runs past the end of the payload "
+                         f"or its {PAYLOAD_TAIL}-byte tail")
+    width = -(-max(int(plen.max()) if plen.numel() else 0, 1) // 16) * 16
+    rows = payload_rows(payload, poff, plen, width)
     if ctx_freq is not None:
-        return order1_plain(payload, plen, states, ctx_index, ctx_freq,
+        return order1_plain(rows, plen, states, ctx_index, ctx_freq,
                             alphabet, inner_len, n_states, shift, out_len)
-    return order0_plain(payload, plen, states, freq, inner_len, n_states,
+    return order0_plain(rows, plen, states, freq, inner_len, n_states,
                         out_len), None
 
 
-def _launch(order1, payload, plen, states, inner_len, tables, n_states,
-            out_len, shift):
+def _launch(order1, payload, poff, plen, states, inner_len, tables,
+            n_states, out_len, shift):
     lib = load_library()
     dev = payload.device
-    B = payload.shape[0]
-    out = torch.empty((B, out_len), dtype=torch.uint8, device=dev)
+    B = plen.shape[0]
+    # the kernel flushes symbols in 16-byte stores: a row stride that is
+    # a multiple of 16, cut back to out_len for the caller
+    stride = -(-out_len // 16) * 16
+    out = torch.empty((B, stride), dtype=torch.uint8, device=dev)
     bad = torch.empty(B, dtype=torch.int32, device=dev) if order1 else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if order1:
             ctx_index, ctx_freq, alphabet = tables
             rc = lib.rans_order1_launch(
-                payload.data_ptr(), payload.shape[1], plen.data_ptr(),
+                payload.data_ptr(), payload.numel(), poff.data_ptr(),
+                plen.data_ptr(),
                 states.data_ptr(), ctx_index.data_ptr(),
                 ctx_freq.data_ptr(), alphabet.data_ptr(), ctx_freq.shape[1],
                 inner_len.data_ptr(), n_states, shift, B, out.data_ptr(),
-                out_len, bad.data_ptr(), stream)
+                stride, bad.data_ptr(), stream)
         else:
             rc = lib.rans_order0_launch(
-                payload.data_ptr(), payload.shape[1], plen.data_ptr(),
+                payload.data_ptr(), payload.numel(), poff.data_ptr(),
+                plen.data_ptr(),
                 states.data_ptr(), tables[0].data_ptr(),
-                inner_len.data_ptr(), n_states, B, out.data_ptr(), out_len,
+                inner_len.data_ptr(), n_states, B, out.data_ptr(), stride,
                 stream)
     if rc != 0:
         raise KernelFault("rans kernel launch failed: "
                           + lib.rans_kernel_error_string(rc).decode())
     with _lock:
         LAUNCHES["rans"] += 1
-    return out, bad
+    return out[:, :out_len], bad

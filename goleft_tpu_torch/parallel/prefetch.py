@@ -136,12 +136,16 @@ def stage_block_arrays(host_arrays: dict, device) -> dict:
     """Stage one group of host arrays to ``device``, counted.
 
     The compressed-wire staging step of ``--decode-device``
-    (ops/rans_device.py): the dict holds still-compressed block payloads
-    plus their table arrays, so ``prefetch.bytes_staged_total`` /
-    ``prefetch.bytes_transferred_total`` count compressed bytes. On a
+    (ops/rans_device.py): the dict holds a launch group's still-compressed
+    payloads, back to back (each rounded up to 16 bytes), plus their
+    table arrays, so ``prefetch.bytes_staged_total`` /
+    ``prefetch.bytes_transferred_total`` count those bytes. On a
     CUDA device each array goes through a pinned host buffer and a
-    ``non_blocking`` copy on the current stream; PyTorch's pinned-memory
-    allocator keeps the buffer until that copy has run."""
+    ``non_blocking`` copy on the current stream (ops/rans_device.py runs
+    it under the calling thread's own stream). PyTorch's pinned-memory
+    allocator records an event on the stream current at the copy and
+    hands the buffer out again only after that event, so a buffer is
+    not reused before the copy on its own stream has run."""
     device = torch.device(device)
     out = {}
     for k, a in host_arrays.items():

@@ -114,23 +114,23 @@ def test_permanent_decode_fault_degrades_as_jax_does(cohort, capsys):
 @pytest.mark.parametrize("processes", [1, 4])
 def test_kernel_fault_on_the_card_fails_the_run(cohort, monkeypatch,
                                                 processes):
-    """An error a kernel leaves on the card is raised by the decode's
-    synchronize as KernelFault: the run fails with it, unretried and with
-    nothing quarantined, instead of exiting 3 with zero-filled samples.
-    The card's synchronize is driven here against a stand-in that raises
-    as a sticky CUDA error does."""
+    """An error a kernel leaves on the card is raised by the wait on the
+    calling thread's stream as KernelFault: the run fails with it,
+    unretried and with nothing quarantined, instead of exiting 3 with
+    zero-filled samples. The stream's synchronize is driven here against
+    a stand-in that raises as a sticky CUDA error does."""
     from goleft_tpu_torch.device import KernelFault
 
     crams, fai, _ = cohort
 
-    def sticky(device=None):
-        raise RuntimeError("CUDA error: an illegal memory access was "
-                           "encountered")
+    class StickyStream:
+        def synchronize(self):
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
 
     real_sync = rd._sync
-    monkeypatch.setattr(torch.cuda, "synchronize", sticky)
     monkeypatch.setattr(rd, "_sync",
-                        lambda device: real_sync(torch.device("cuda")))
+                        lambda stream: real_sync(StickyStream()))
     reg = get_registry()
     retries = reg.counter("resilience.retries_total").value
     quarantined = reg.counter("resilience.quarantined_total").value

@@ -99,7 +99,10 @@ def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b):
 
 def _rans_streams(rng):
     """A flag matrix of streams, encoded by the port: N = 4 and X32 x
-    ORDER0 and ORDER1 x plain, RLE, PACK, RLE+PACK, and STRIPE lanes."""
+    ORDER0 and ORDER1 x plain, RLE, PACK, RLE+PACK, ORDER1 at shifts 10
+    and 7 (the bucket index inexact and exact), STRIPE lanes, a
+    256-context ORDER1 table, and a 100,000-symbol ORDER1 stream (a 64 KB+ payload: the shared payload
+    ring and the staging ring wrap many times)."""
     from goleft_tpu_torch.io import rans_nx16 as rx
 
     ramp = (np.cumsum(rng.choice([0, 0, 0, 1, 2, 5], 9000)) % 120) \
@@ -116,35 +119,36 @@ def _rans_streams(rng):
                     d = d.tobytes()
                     cases.append((d, rx.encode(d, order=order, use_rle=rle,
                                                use_pack=pack, x32=x32)))
+        for shift in (10, 7):
+            d = ramp[:5000].tobytes()
+            cases.append((d, rx.encode(d, order=1, x32=x32, shift=shift)))
     for sz in (9000, 8999, 101):
         cases.append((ramp[:sz].tobytes(), rx.encode(ramp[:sz].tobytes(),
                                                      stripe=3)))
+    d = rng.integers(0, 60, 100000).astype(np.uint8).tobytes()
+    cases.append((d, rx.encode(d, order=1)))
+    assert len(cases[-1][1]) > 65536
+    # 256 contexts: the widest ORDER1 table, with fewer buckets a row
+    d = (np.cumsum(rng.choice([0, 1, 2, 3, 255], 30000)) % 256) \
+        .astype(np.uint8).tobytes()
+    cases.append((d, rx.encode(d, order=1)))
+    assert cases[-1][1][0] & rx.F_ORDER1
     return cases
 
 
 def _rans_groups(plans, dev):
+    """Each launch group's tensors on ``dev``: (key, streams, tensors)."""
     from goleft_tpu_torch.ops import rans_device as rd
 
-    flat = [c for p in plans for c in (p.children if p.stripe else [p])]
-    groups = {}
-    for p in flat:
-        if not p.cat:
-            groups.setdefault(rd._signature(p), []).append(p)
-    for sig, grp in sorted(groups.items()):
-        host = rd._host_arrays(grp, sig)
-        host["states"] = host["states"].view(np.int32)
-        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-             for k, v in host.items()}
-        tables = dict(ctx_index=t["ctx_index"], ctx_freq=t["ctx_freq"],
-                      alphabet=t["alphabet"], shift=sig[3]) if sig[2] \
-            else dict(freq=t["freq"])
-        yield (t["payload"], t["plen"], t["states"], t["inner"]), dict(
-            n_states=sig[0], out_len=sig[8], **tables)
+    for key, grp, host in rd.launch_groups(plans):
+        yield key, grp, {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                         for k, v in host.items()}
 
 
 @pytest.mark.cuda
 def test_rans_kernel_equals_plain_on_card():
-    """ORDER0 and ORDER1 at N = 4 and 32, every transform, STRIPE lanes:
+    """ORDER0 and ORDER1 at N = 4 and 32, every transform, three ORDER1
+    shifts, STRIPE lanes, a 64 KB+ ORDER1 payload, one launch per group:
     symbols and missing-context flags bitwise; the device decode equals
     the data."""
     if not torch.cuda.is_available():
@@ -157,10 +161,10 @@ def test_rans_kernel_equals_plain_on_card():
     plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
     dev = torch.device("cuda")
     n = 0
-    for args, kw in _rans_groups(plans, dev):
+    for key, grp, t in _rans_groups(plans, dev):
         before = rk.LAUNCHES["rans"]
-        got = rk.rans_decode(*args, **kw)
-        want = rk.rans_decode_plain(*args, **kw)
+        got = rd.group_stage(key, grp, t)
+        want = rd.group_stage(key, grp, t, rk.rans_decode_plain)
         torch.cuda.synchronize()
         assert rk.LAUNCHES["rans"] == before + 1
         assert torch.equal(got[0], want[0])
@@ -170,6 +174,51 @@ def test_rans_kernel_equals_plain_on_card():
         n += 1
     assert n >= 8
     assert rd.decode_parsed(plans, device=dev) == [d for d, _ in cases]
+
+
+@pytest.mark.cuda
+def test_rans_order1_threads_launch_at_once():
+    """Eight threads, each on its own CUDA stream as the cohort's sample
+    threads are, launch ORDER1 groups of seven table sizes (2 to 256
+    contexts: 4 KB to 199 KB of dynamic shared memory) at once, 42 each:
+    every launch succeeds and equals the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from concurrent.futures import ThreadPoolExecutor
+
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
+
+    rng = np.random.default_rng(6)
+    ramp = np.cumsum(rng.choice([0, 1, 2, 3, 255], 6000)) % 256
+    dev = torch.device("cuda")
+    groups = []
+    for a in (2, 3, 13, 39, 77, 150, 256):
+        d = (ramp % a).astype(np.uint8).tobytes()
+        p = rx.parse_nx16(rx.encode(d, order=1), len(d))
+        assert p.order1 and p.n_ctx == a
+        (key, grp, t), = _rans_groups([p], dev)
+        want = rd.group_stage(key, grp, {k: v.cpu() for k, v in t.items()},
+                              rk.rans_decode_plain)
+        groups.append((key, grp, t, want))
+    torch.cuda.synchronize()
+
+    def work(i):
+        # launches queued back to back, one wait at the end: the threads'
+        # launches then overlap on the host
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            order = [(i + r) % len(groups) for r in range(42)]
+            outs = [rd.group_stage(*groups[g][:3]) for g in order]
+        s.synchronize()
+        return [groups[g][1][0].n_ctx for g, got in zip(order, outs)
+                if not (torch.equal(got[0].cpu(), groups[g][3][0])
+                        and torch.equal(got[1].cpu(), groups[g][3][1]))]
+
+    with ThreadPoolExecutor(8) as pool:
+        bad = [c for b in pool.map(work, range(8)) for c in b]
+    assert not bad, f"launches differ from the plain version: {bad}"
 
 
 @pytest.mark.cuda

@@ -29,8 +29,9 @@ def _sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
-    yield os.path.join(ROOT, "tools", "bulk_bam.py")
-    yield os.path.join(ROOT, "tools", "bulk_cram.py")
+    for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
+                 "cohort_bench.py"):
+        yield os.path.join(ROOT, "tools", tool)
 
 
 def test_sources_import_neither_jax_nor_reference():

@@ -29,10 +29,10 @@ CPU = "cpu"
 
 @pytest.fixture(autouse=True)
 def _fresh_signature_registries():
-    rd.reset_signature_registry()
+    """The JAX package caps its compile signatures per process; the port
+    has no cap."""
     jrd.reset_signature_registry()
     yield
-    rd.reset_signature_registry()
     jrd.reset_signature_registry()
 
 
@@ -151,60 +151,183 @@ def test_stripe_uneven_lanes_match_jax():
     _both_agree(cases)
 
 
+def _tensors(host: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in host.items()}
+
+
 def test_order0_stage_equals_pallas_decode0_interpret():
-    """The plain ORDER0 stage against the TPU kernel itself, in
-    interpret mode, packed as the JAX package's _pallas_scan_bytes packs
-    it; symbols up to each stream's inner length."""
+    """The plain ORDER0 stage, on the port's launch groups, against the
+    TPU kernel itself in interpret mode at the JAX package's own bucket
+    shapes (its _signature), packed as its _pallas_scan_bytes packs it;
+    symbols up to each stream's inner length, zeros past it."""
     rng = np.random.default_rng(2)
     for x32 in (False, True):
         cases = _corpus(rng, [17, 201, 4097], x32=x32)
         cases += _corpus(rng, [4097], x32=x32, rle=True, pack=True, alpha=9)
         plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
-        jplans = [jrx.parse_nx16(e, len(d)) for d, e in cases]
-        plans = [p for p in plans if not p.cat]
-        jplans = [p for p in jplans if not p.cat]
-        assert plans
-        for p, jp in zip(plans, jplans):
-            sig = rd._signature(p)
+        jplans = {id(p): jrx.parse_nx16(e, len(d))
+                  for p, (d, e) in zip(plans, cases)}
+        groups = rd.launch_groups(plans)
+        assert [k for k, _, _ in groups] == [(False, 32 if x32 else 4,
+                                              rk.TF_SHIFT)]
+        (key, grp, host), = groups
+        assert len(grp) == sum(not p.cat for p in plans) > 1
+        got, bad = rd.group_stage(key, grp, _tensors(host))
+        assert bad is None and got.shape == (len(grp), rd.lit_width(grp))
+        for j, p in enumerate(grp):
+            jp = jplans[id(p)]
+            sig = jrd._signature(jp)
             n, rounds, p_cap = sig[0], sig[6], sig[7]
             want = jrd._pallas_scan_bytes([jp], n, rounds, p_cap,
                                           interpret=True)[0]
-            host = rd._host_arrays([p], sig)
-            t = {k: torch.from_numpy(np.ascontiguousarray(v))
-                 for k, v in host.items()}
-            got, bad = rk.rans_decode(
-                t["payload"], t["plen"], t["states"].view(torch.int32),
-                t["inner"], n_states=n, out_len=sig[8], freq=t["freq"])
-            assert bad is None
             k = p.inner_len
-            assert np.array_equal(got[0, :k].numpy(), want[:k])
-            assert not got[0, k:].any()
+            assert np.array_equal(got[j, :k].numpy(), want[:k])
+            assert not got[j, k:].any()
 
 
 def test_order1_stage_plain_matches_host_on_parsed_tables():
-    """The plain ORDER1 stage on one bucket of several streams (lanes of
-    different lengths share the round loop) gives each stream's symbols
-    and zeros past them."""
+    """The plain ORDER1 stage on one launch group of several streams
+    (states of different lengths share the round loop, a narrower table
+    comes padded to the widest) gives each stream's symbols and zeros
+    past them."""
     rng = np.random.default_rng(3)
     base = _order1_corpus(rng, 20000)
-    datas = [base[:n] for n in (19997, 20000, 5003)]
+    narrow = bytes(np.frombuffer(base, np.uint8) % 7)
+    datas = [base[:19997], base[:20000], narrow[:5003]]
     plans = [rx.parse_nx16(jrx.encode(d, order=1), len(d)) for d in datas]
     assert all(p.order1 for p in plans)
-    p_cap = rd.bucket(max(len(p.payload) for p in plans))
-    n_ctx_cap = rd.bucket(max(p.n_ctx for p in plans), minimum=16)
-    sig = (4, False, True, plans[0].shift, False, False, 0, p_cap, 0, 0, 0,
-           16, n_ctx_cap)
-    host = rd._host_arrays(plans, sig)
-    t = {k: torch.from_numpy(np.ascontiguousarray(v))
-         for k, v in host.items()}
-    out, bad = rk.rans_decode(
-        t["payload"], t["plen"], t["states"].view(torch.int32), t["inner"],
-        n_states=4, out_len=20032, ctx_index=t["ctx_index"],
-        ctx_freq=t["ctx_freq"], alphabet=t["alphabet"], shift=sig[3])
-    assert not bad.any()
+    assert len({p.n_ctx for p in plans}) == 2
+    (key, grp, host), = rd.launch_groups(plans)
+    assert grp == plans and key == (True, 4, plans[0].shift)
+    assert host["ctx_freq"].shape[1:] == (plans[0].n_ctx, plans[0].n_ctx)
+    out, bad = rd.group_stage(key, grp, _tensors(host))
+    assert not bad.any() and out.shape == (3, 20000)
     for j, d in enumerate(datas):
         assert bytes(out[j, :len(d)].numpy()) == d
         assert not out[j, len(d):].any()
+
+
+def _first_container_blocks(path: str):
+    """The raw blocks of a CRAM file's first container."""
+    from goleft_tpu_torch.io.crai import load_crai_entries
+    from goleft_tpu_torch.io.cram import CramFile, decode_raw_block
+
+    class Recorder:
+        raws = []
+
+        def decode_blocks(self, raws):
+            self.raws.append(list(raws))
+            return [decode_raw_block(rb).data for rb in raws]
+
+    start = load_crai_entries(path + ".crai")[0][1]  # 1-based
+    cf = CramFile.from_file(path)
+    rec = Recorder()
+    cf.set_block_decoder(rec)
+    cf.read_columns(tid=0, start=start - 1, end=start)
+    return rec.raws[0]
+
+
+def test_launch_groups_of_each_fixture_codec(tmp_path):
+    """One container of each codec of the cohort fixture: ORDER0 N=4 is
+    one launch, ORDER1 N=4 one for all its ORDER1 blocks, whatever their
+    table sizes, and STRIPE 4 one for all its lanes; the decoded bytes
+    equal the JAX package's decode_streams and the host decoder."""
+    from goleft_tpu.ops.decode_smoke import make_cram_cohort
+
+    crams, _ = make_cram_cohort(str(tmp_path))
+    o0 = (False, 4, rk.TF_SHIFT)
+    for path, order1, stripe in zip(crams, (0, 0, 1, 0), (0, 0, 0, 4)):
+        raws = [rb for rb in _first_container_blocks(path)
+                if rb.method == M_RANSNX16]
+        plans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
+        assert all(p is not None for p in plans)
+        keys = [k for k, _, _ in rd.launch_groups(plans)]
+        flat = [c for p in plans for c in (p.children if p.stripe else [p])
+                if not c.cat]
+        assert sum(len(g) for _, g, _ in rd.launch_groups(plans)) \
+            == len(flat) > 0
+        if order1:
+            assert keys == [(True, 4, flat[0].shift)]
+            assert all(p.order1 for p in flat)
+            assert len({p.n_ctx for p in flat}) > 1
+        else:
+            assert keys == [o0]
+            assert all(p.stripe for p in plans) == bool(stripe)
+        encs = [rb.raw for rb in raws]
+        lens = [rb.rsize for rb in raws]
+        got = rd.decode_streams(encs, lens, device=CPU)
+        assert got == jrd.decode_streams(encs, lens)
+        assert got == [rx.decode(e, n) for e, n in zip(encs, lens)]
+
+
+def test_mixed_streams_split_one_group_per_key():
+    """N = 4 and X32, ORDER0 and ORDER1, three ORDER1 shifts and two
+    table sizes in one call: one launch group per (ORDER1, N, shift),
+    whatever the lengths and table sizes; bytes equal to the JAX
+    package's and to the data."""
+    rng = np.random.default_rng(26)
+    base = _order1_corpus(rng, 9000)
+    narrow = bytes(np.frombuffer(base, np.uint8) % 7)
+    cases = []
+    for x32 in (False, True):
+        for n in (9000, 3001, 40):
+            d = bytes(rng.integers(0, 30, n, dtype=np.uint8))
+            cases.append((d, rx.encode(d, x32=x32)))
+            for data in (base[:n], narrow[:n]):
+                for shift in (12, 10, 7):
+                    cases.append((data, rx.encode(data, order=1, x32=x32,
+                                                  shift=shift)))
+    plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
+    coded = [p for p in plans if not p.cat]
+    want_keys = sorted({rd.group_key(p) for p in coded})
+    assert {k[2] for k in want_keys if k[0]} == {12, 10, 7}
+    assert {k[1] for k in want_keys} == {4, 32}
+    assert len(want_keys) == 8
+    groups = rd.launch_groups(plans)
+    assert [k for k, _, _ in groups] == want_keys
+    for key, grp, host in groups:
+        assert all(rd.group_key(p) == key for p in grp)
+        if key[0]:
+            assert len({p.n_ctx for p in grp}) >= 2
+            c = max(p.n_ctx for p in grp)
+            assert host["ctx_freq"].shape == (len(grp), c, c)
+    assert sum(len(g) for _, g, _ in groups) == len(coded)
+    _both_agree(cases)
+
+
+def test_payload_rows_are_16_byte_strides():
+    """A group's payloads lie back to back, each from a multiple of 16
+    bytes (its offset in 16-byte units) and padded only up to the next,
+    then the kernel's tail: no stream is padded to the longest. The
+    wrapper refuses a payload that is not a multiple of 16 bytes long or
+    not 16-byte aligned, and a stream that runs into the tail."""
+    rng = np.random.default_rng(27)
+    cases = _corpus(rng, [100, 1001, 3333], alpha=50)
+    plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
+    (key, grp, host), = rd.launch_groups(plans)
+    units = [-(-len(p.payload) // 16) for p in grp]
+    assert host["payload"].shape == (16 * sum(units) + rk.PAYLOAD_TAIL,)
+    assert list(host["poff"]) == list(np.cumsum(units) - units)
+    assert list(host["plen"]) == [len(p.payload) for p in grp]
+    for j, p in enumerate(grp):
+        o = 16 * int(host["poff"][j])
+        assert bytes(host["payload"][o:o + len(p.payload)]) \
+            == bytes(p.payload)
+    data = {id(p): d for p, (d, _) in zip(plans, cases)}
+    t = _tensors(host)
+    got, _ = rd.group_stage(key, grp, t)
+    for j, p in enumerate(grp):
+        assert bytes(got[j, :p.inner_len].numpy()) == data[id(p)]
+    for cut in (1, 2, 8):
+        t2 = dict(t, payload=t["payload"][:-cut].contiguous())
+        with pytest.raises(ValueError, match="multiple of 16"):
+            rd.group_stage(key, grp, t2)
+    odd = torch.zeros(t["payload"].numel() + 1, dtype=torch.uint8)[1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        rd.group_stage(key, grp, dict(t, payload=odd))
+    with pytest.raises(ValueError, match="past the end"):
+        rd.group_stage(key, grp, dict(t, payload=t["payload"][:-16]))
 
 
 def test_order1_missing_context_raises_the_jax_error():
@@ -252,37 +375,6 @@ def test_order1_corrupt_table_falls_back_as_jax_does():
         == c.get("decode.device_fallback_total", 0) + 1
 
 
-def test_signature_cap_takes_the_jax_fallbacks(caplog):
-    import logging
-
-    rng = np.random.default_rng(25)
-    datas = [bytes(rng.integers(0, 40, n, dtype=np.uint8))
-             for n in (300, 5000, 70000)]
-    encs = [jrx.encode(d) for d in datas]
-    old = (rd.MAX_BUCKET_SIGNATURES, jrd.MAX_BUCKET_SIGNATURES)
-    reg = get_registry()
-    try:
-        rd.MAX_BUCKET_SIGNATURES = jrd.MAX_BUCKET_SIGNATURES = 1
-        before = reg.snapshot()["counters"]
-        with caplog.at_level(logging.WARNING):
-            got = rd.decode_streams(encs, [len(d) for d in datas],
-                                    device=CPU)
-        want = jrd.decode_streams(encs, [len(d) for d in datas])
-        assert got == want == [datas[0], None, None]
-        assert any("bucket-signature cap" in r.message
-                   for r in caplog.records)
-        dec = rd.DeviceBlockDecoder(device=CPU)
-        raws = [RawBlock(M_RANSNX16, 4, 1, e, len(d))
-                for e, d in zip(encs, datas)]
-        assert dec.decode_blocks(raws) == datas
-        after = reg.snapshot()["counters"]
-        for name in ("decode.bucket_cap_fallback_total",
-                     "decode.device_fallback_total"):
-            assert after[name] == before.get(name, 0) + 2, name
-    finally:
-        rd.MAX_BUCKET_SIGNATURES, jrd.MAX_BUCKET_SIGNATURES = old
-
-
 def test_decode_site_transient_retried_permanent_raised():
     from goleft_tpu_torch.resilience import faults
 
@@ -302,8 +394,9 @@ def test_decode_site_transient_retried_permanent_raised():
 
 def test_wrapper_checks_its_inputs():
     z = torch.zeros
-    args = (z(2, 64, dtype=torch.uint8), z(2, dtype=torch.int32),
-            z(2, 4, dtype=torch.int32), z(2, dtype=torch.int32))
+    args = (z(rk.PAYLOAD_TAIL, dtype=torch.uint8), z(2, dtype=torch.int32),
+            z(2, dtype=torch.int32), z(2, 4, dtype=torch.int32),
+            z(2, dtype=torch.int32))
     ok = dict(n_states=4, out_len=64, freq=z(2, 256, dtype=torch.int16))
     out, bad = rk.rans_decode(*args, **ok)
     assert out.shape == (2, 64) and bad is None and not out.any()
