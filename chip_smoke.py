@@ -23,14 +23,18 @@ Run from the root of a checkout, on a machine with one CUDA card:
    150 bp, MAPQ 0 / DUP / SECONDARY reads, D / N / S / I CIGARs, a pileup
    above the cap), runs ``python -m goleft_tpu_torch depth`` on it in a
    fresh process (launch counts start at 0 there and come back in its
-   ``--metrics-out`` report) and compares both BED files byte for byte
+   ``--metrics-out`` run manifest) and compares both BED files byte for byte
    with an independent numpy oracle;
 5. holds the pair-HMM kernel against its plain version on the card, f32
    rescaled and f64 unscaled, contribs and shifts bitwise: one bucket of
    4,096 pairs of 150 bp reads (quals 2-41, mismatches, indels, N) x
    416 bp haplotypes, edge buckets (read longer than hap, a 1-base read,
-   a q93 read, 300 bp junk reads below 1e-100) and a bucket of 1,100 bp
-   reads (r1 1,121: rows beyond one per thread); padding invariance on
+   a q93 read, 300 bp junk reads below 1e-100), a bucket of 1,100 bp
+   reads (r1 1,121: five strips of 256 rows), buckets of r1 = 32 R and
+   32 R + 1 rows for every compiled R = 1..8 (256 | 257: the strip edge)
+   and the adoption trap (pm = 0 where each read's first base meets its
+   hap's first base, zero priors in other rows); the ptxas registers and
+   spills of every instantiation (no spills allowed); padding invariance on
    the card (a pair alone = in its bucket; bucket 32 = bucket 128 over
    each pair's live steps); 16 pairs against a copy of the test suite's
    numpy f64 log-space oracle and the long bucket against a row-at-a-time
@@ -345,8 +349,7 @@ def e2e_phase(root: str, workdir: str):
     if r.returncode != 0:
         raise AssertionError(f"depth CLI failed ({r.returncode}):\n"
                              f"{r.stderr[-4000:]}")
-    with open(report) as fh:
-        rep = json.load(fh)
+    rep, cmd_s, stages = read_manifest(report, "depth")
     assert rep["native_io"], "the native host decoder was not loaded"
     launches = rep["kernel_launches"]["depth"]
     assert launches >= 1, "the depth CLI never launched the depth kernel"
@@ -362,8 +365,6 @@ def e2e_phase(root: str, workdir: str):
                 f"{os.path.basename(path)} differs from the numpy oracle "
                 f"at byte {i}: got {got[i - 80:i + 80]!r} want "
                 f"{want[i - 80:i + 80]!r}")
-    stages = rep["stage_seconds"]
-    cmd_s = rep["seconds"]
     log(f"depth CLI: {E2E_LEN} bp, {E2E_READS} reads; process wall "
         f"{wall:.3f} s = {E2E_LEN / wall / 1e9:.4f} Gbases/s, command "
         f"{cmd_s:.3f} s = {E2E_LEN / cmd_s / 1e9:.4f} Gbases/s end to end; "
@@ -385,7 +386,7 @@ def e2e_phase(root: str, workdir: str):
             "gbases_per_s": E2E_LEN / cmd_s / 1e9,
             "gbases_per_s_process": E2E_LEN / wall / 1e9,
             "launches": launches, "stage_seconds": stages,
-            "provenance": rep["provenance"]}
+            "backend": rep["backend"]}
 
 
 # ---- pair-HMM phases ---------------------------------------------------
@@ -396,9 +397,17 @@ PH_LONG = (1100, 1200, 8)  # read bp, hap bp, pairs: r1 1121, two strips
 PH_WINDOWS, PH_WINDOW_READS = 1000, 80
 PH_ORACLE_WINDOWS = 20
 PH_FAULT_SPEC = "pairhmm:every=1:permanent:times=99"
-# float32 / float64 rates outside the tensor cores (H100 SXM data sheet)
-F32_OPS_PER_S = 67e12
-F64_OPS_PER_S = 34e12
+# r1 values that reach each compiled R (r1 = 32 R) and the first r1 of
+# the next (32 R + 1); 256 | 257 is the strip edge
+PH_GEOMETRY_R1 = [r1 for rows in range(1, 9) for r1 in (32 * rows,
+                                                        32 * rows + 1)]
+# float32 / float64 instruction rates outside the tensor cores, counting
+# a multiply or an add as one operation: 132 SMs x 128 (f32) or 64 (f64)
+# lanes x 1.98 GHz. The data sheet's 67 / 34 TFLOP/s count an FMA as two
+# operations, but the kernel is built with -fmad=false and issues every
+# multiply and add on its own, so these are its peak rates.
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+F64_OPS_PER_S = 132 * 64 * 1.98e9
 _CODES = np.frombuffer(b"ACGTN", np.uint8)
 _LN10 = np.log(10.0)
 
@@ -528,6 +537,63 @@ def ph_pairs(rng, n, read_len, hap_len, qual=None, junk=False):
     return reads, quals, haps
 
 
+def ph_packed(rng, n, r1, hap_len, dtype, qual=None, junk=False):
+    """n pairs of (r1 - 1) bp reads x ``hap_len`` bp haps packed at
+    exactly r1 rows (``_pack_bucket`` with r_pad = r1 - 1)."""
+    from goleft_tpu_torch.ops import pairhmm as tph
+
+    reads, quals, haps = ph_pairs(rng, n, r1 - 1, hap_len, qual, junk)
+    return tph._pack_bucket(list(range(n)), reads,
+                            [tph.phred_to_err(q) for q in quals], haps,
+                            r1 - 1, tph._pad_up(hap_len), dtype)
+
+
+def ph_trap_bucket(rng, n, read_len, hap_len, dtype):
+    """The adoption trap, packed: junk q20 reads whose first base is
+    their hap's first base, at pm = 0, so cell (1, 1) is all zero inside
+    the valid area, and 3% of the other rows' pm and px zeroed. Such
+    zero cells meet rows that renormalise on the same diagonal, where
+    an all-zero cell must adopt the counter its upper neighbour has just
+    computed."""
+    from goleft_tpu_torch.ops import pairhmm as tph
+
+    reads, quals, haps = ph_pairs(rng, n, read_len, hap_len, qual=20,
+                                  junk=True)
+    for r, h in zip(reads, haps):
+        r[0] = h[0]
+    reads_p, pm, px, rlens, haps_p, hlens = tph._pack_bucket(
+        list(range(n)), reads, [tph.phred_to_err(q) for q in quals], haps,
+        tph._pad_up(read_len), tph._pad_up(hap_len), dtype)
+    pm[:, 1] = 0
+    pm[:, 2:][rng.random(pm[:, 2:].shape) < 0.03] = 0
+    px[:, 2:][rng.random(px[:, 2:].shape) < 0.03] = 0
+    return reads_p, pm, px, rlens, haps_p, hlens
+
+
+def kernel_resources(build_log: str) -> dict:
+    """ptxas's report of the pair-HMM kernel's instantiations →
+    {"float32 R6": {"registers", "spill_stores", "spill_loads"}, ...}."""
+    import re
+
+    out, key = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*pairhmm_forward_kernel"
+                      r"I([fd])Lb[01]ELi(\d)E", line)
+        if m:
+            key = f"{'float32' if m[1] == 'f' else 'float64'} R{m[2]}"
+            out[key] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if key and m:
+            out[key].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if key and m:
+            out[key]["registers"] = int(m[1])
+            key = None
+    return out
+
+
 def pairhmm_kernel_phase(dev):
     """Kernel vs plain version on the card (f32 rescaled, f64 unscaled):
     one full bucket of 4,096 pairs, edge buckets, a 1,100 bp bucket;
@@ -539,6 +605,12 @@ def pairhmm_kernel_phase(dev):
     from goleft_tpu_torch.ops import pairhmm as tph
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
 
+    resources = kernel_resources(pk.BUILD_LOG)
+    if resources:
+        log("pairhmm kernel instantiations (ptxas): " + json.dumps(resources))
+        spills = {k: v for k, v in resources.items()
+                  if v.get("spill_stores") or v.get("spill_loads")}
+        assert len(resources) == 16 and not spills, spills
     rng = np.random.default_rng(150)
     cases = {
         "main": ph_pairs(rng, PH_B, PH_READ, PH_HAP),
@@ -597,9 +669,41 @@ def pairhmm_kernel_phase(dev):
                     lambda: pk.forward_bucket_plain(*t, rescale=rescale),
                     reps=3)
                 out[np.dtype(dtype).name] = {"ms": ms, "plain_ms": plain_ms}
-        log(f"pairhmm kernel {name}: {len(reads)} pairs, r1 {r_pad + 1}, "
-            f"h_pad {h_pad}: contribs and shifts bitwise equal to the "
-            f"plain version in f32 and f64")
+        log(f"pairhmm kernel {name}: {len(reads)} pairs, r1 {r_pad + 1} "
+            f"(R, strips: {pk.launch_geometry(r_pad + 1)}), h_pad {h_pad}: "
+            f"contribs and shifts bitwise equal to the plain version in f32 "
+            f"and f64")
+
+    # every compiled R and its edges, the strip edge, and the adoption
+    # trap: packed arrays straight to the kernel, bitwise
+    grng = np.random.default_rng(32)
+    geometry = {f"r1={r1}": lambda dtype, r1=r1: ph_packed(
+        grng, 16, r1, 120, dtype, qual=40 if r1 % 2 else None,
+        junk=bool(r1 % 2)) for r1 in PH_GEOMETRY_R1}
+    geometry["trap"] = lambda dtype: ph_trap_bucket(grng, 64, PH_READ,
+                                                    PH_HAP, dtype)
+    for name, make in geometry.items():
+        for dtype in (np.float32, np.float64):
+            rescale = dtype == np.float32
+            packed = make(dtype)
+            trans = tph.transition_probs().astype(dtype)
+            t = [torch.from_numpy(a).to(dev) for a in (*packed, trans)]
+            got = pk.forward_bucket(*t, rescale=rescale)
+            want = pk.forward_bucket_plain(*t, rescale=rescale)
+            torch.cuda.synchronize()
+            err = (got[0].double() - want[0].double()).abs().max().item()
+            max_err = max(max_err, err)
+            if not (torch.equal(got[0], want[0])
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(
+                    f"pairhmm kernel ({name}, {np.dtype(dtype).name}): "
+                    f"differs from the plain version (contribs max abs "
+                    f"err {err}, shifts equal "
+                    f"{torch.equal(got[1], want[1])})")
+    log("pairhmm kernel geometry cases, (R, strips) by r1: " + ", ".join(
+        f"{r1} {pk.launch_geometry(r1)}" for r1 in PH_GEOMETRY_R1)
+        + "; and the adoption trap (64 pairs, 150 x 416): contribs and "
+        "shifts bitwise equal to the plain version in f32 and f64")
 
     # padding invariance at bucket 32 vs bucket 128: each pair's kernel
     # outputs over its live steps bitwise; the host fold's np.sum runs
@@ -679,11 +783,15 @@ def pairhmm_kernel_phase(dev):
     reads, quals, haps = cases["main"]
     cells = sum(len(r) * len(h) for r, h in zip(reads, haps))
     r1, h_pad = tph._pad_up(PH_READ) + 1, tph._pad_up(PH_HAP)
-    lane_steps = PH_B * r1 * (r1 + h_pad)
+    # cells the kernel sweeps: 32 R row slots a pair x r1 + hap diagonals
+    row_slots = PH_B * pk.LANES * pk.launch_geometry(r1)[0] * (r1 + h_pad)
     bytes_moved = PH_B * (r1 * 9 + h_pad + 8 + (r1 + h_pad) * 8) + 20
-    res = {"cells": cells, "lane_steps": lane_steps, "bytes": bytes_moved,
+    res = {"cells": cells, "row_slots": row_slots, "bytes": bytes_moved,
            "ops_per_cell": pk.OPS_PER_CELL, "max_abs_err": max_err,
-           "oracle_err_f32": worst[True], "oracle_err_f64": worst[False]}
+           "oracle_err_f32": worst[True], "oracle_err_f64": worst[False],
+           "geometry": {n: pk.launch_geometry(n)
+                        for n in (r1, tph._pad_up(PH_LONG[0]) + 1)},
+           "resources": resources}
     for name, rate in (("float32", F32_OPS_PER_S),
                        ("float64", F64_OPS_PER_S)):
         t_ops = pk.OPS_PER_CELL[name] * cells / rate * 1e3
@@ -692,12 +800,12 @@ def pairhmm_kernel_phase(dev):
         m.update(bound_ms=max(t_ops, t_bytes),
                  bound_by="operations" if t_ops >= t_bytes else "bytes",
                  gcups=cells / m["ms"] / 1e6,
-                 gcups_lane_steps=lane_steps / m["ms"] / 1e6)
+                 gcups_row_slots=row_slots / m["ms"] / 1e6)
         res[name] = m
         log(f"pairhmm kernel {name}, {PH_B} pairs of {PH_READ} x {PH_HAP}: "
             f"median {m['ms']:.4f} ms kernel, {m['plain_ms']:.4f} ms "
             f"plain; {m['gcups']:.2f} GCUPS over {cells} useful cells, "
-            f"{m['gcups_lane_steps']:.2f} over {lane_steps} lane-steps; "
+            f"{m['gcups_row_slots']:.2f} over {row_slots} row slots swept; "
             f"bound {m['bound_ms']:.4f} ms ({m['bound_by']}: "
             f"{pk.OPS_PER_CELL[name]} ops/cell at {rate:.3g}/s; "
             f"{bytes_moved} bytes at {HBM_BYTES_PER_S:.3g}/s); "
@@ -757,6 +865,17 @@ def _run_cli(root: str, args: list[str], env: dict):
     return r, time.perf_counter() - t0
 
 
+def read_manifest(path: str, prog: str):
+    """A CLI run's ``--metrics-out`` run manifest, validated
+    (obs/manifest.py) → (manifest, the command's seconds: its
+    ``run.<prog>`` span, {stage: seconds} of the other spans)."""
+    from goleft_tpu_torch.obs.manifest import load_manifest
+
+    rep = load_manifest(path)
+    spans = {k: v["seconds"] for k, v in rep["spans"].items()}
+    return rep, spans.pop(f"run.{prog}"), spans
+
+
 def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     """``python -m goleft_tpu_torch pairhmm`` at full width in a fresh
     process: 1,000 windows x 4 haplotypes x 80 reads of 150 bp, ~80% of
@@ -790,12 +909,12 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     if r.returncode != 0:
         raise AssertionError(f"pairhmm CLI failed ({r.returncode}):\n"
                              f"{r.stderr[-4000:]}")
-    with open(report) as fh:
-        rep = json.load(fh)
+    rep, cmd_s, stages = read_manifest(report, "pairhmm")
     launches = rep["kernel_launches"]["pairhmm"]
-    buckets = rep["counters"]["pairhmm.buckets_total"]
+    counters = rep["metrics"]["counters"]
+    buckets = counters["pairhmm.buckets_total"]
     assert launches >= 1 and launches == buckets, (launches, buckets)
-    assert rep["counters"]["pairhmm.pairs_total"] == n_pairs
+    assert counters["pairhmm.pairs_total"] == n_pairs
     with open(table) as fh:
         rows = fh.read().splitlines()
     assert rows[0].startswith("#chrom\tstart\tend"), rows[0]
@@ -830,8 +949,6 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
         f"GQ equal, PL max |diff| {worst_pl} "
         f"({time.perf_counter() - t0:.1f} s)")
 
-    stages = rep["stage_seconds"]
-    cmd_s = rep["seconds"]
     rest = cmd_s - rep["import_seconds"] - sum(stages.values())
     log(f"pairhmm CLI: {len(kept)} windows, {n_pairs} pairs, {cells} cells; "
         f"process wall {wall:.3f} s, command {cmd_s:.3f} s, import "
@@ -859,9 +976,9 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     assert len(q) == 5 and all(e["phase"] == "pairhmm" for e in q), q
     with open(os.path.join(workdir, "fault.tsv")) as fh:
         assert fh.read().count("\n") == 1
-    with open(freport) as fh:
-        frep = json.load(fh)
-    assert frep["counters"]["pairhmm.buckets_failed_total"] >= 1
+    frep = read_manifest(freport, "pairhmm")[0]
+    assert frep["exit_code"] == 3
+    assert frep["metrics"]["counters"]["pairhmm.buckets_failed_total"] >= 1
     log(f"pairhmm with {PH_FAULT_SPEC}: exit 3, {len(q)} windows "
         "quarantined, manifest written")
     return {"wall_s": wall, "command_s": cmd_s,
@@ -1353,9 +1470,8 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
                 f"cohortdepth ({name}) matrix differs from the oracle at "
                 f"byte {i}: got {r.stdout[i - 80:i + 80]!r} want "
                 f"{want[i - 80:i + 80]!r}")
-        with open(report) as fh:
-            rep = json.load(fh)
-        c = rep["counters"]
+        rep, cmd_s, stages = read_manifest(report, "cohortdepth")
+        c = rep["metrics"]["counters"]
         launches = rep["kernel_launches"]
         assert launches["rans"] == planned > 0, (launches, planned)
         assert c["decode.device_blocks_total"] > 0, c
@@ -1364,8 +1480,6 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
             assert launches["depth"] == CO_SAMPLES, launches
         if name == "fault":
             assert c.get("resilience.retries_total", 0) >= 1, c
-        stages = rep["stage_seconds"]
-        cmd_s = rep["seconds"]
         runs[name] = {"wall_s": wall, "command_s": cmd_s,
                       "import_s": rep["import_seconds"],
                       "stage_seconds": stages, "launches": launches,

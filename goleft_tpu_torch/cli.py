@@ -6,17 +6,19 @@ register here as their slices of the port land.
 
 Global flag, valid before or after the subcommand name:
 
-  --metrics-out FILE  write a JSON run report at exit: command, argv,
-                      exit code, the command's seconds, the seconds
-                      spent importing torch and the subcommand, card
-                      provenance, kernel launch counts, per-stage
-                      seconds, the counters of obs/ and whether the
-                      native host decoder was loaded
+  --metrics-out FILE  write the run manifest at exit, the reference's
+                      ``goleft-tpu.run-manifest/1.3`` (obs/manifest.py):
+                      argv, env, backend (card provenance, platform),
+                      spans (per-stage seconds and calls; the command's
+                      own under ``run.<command>``), metrics (the
+                      counters of obs/), trace_id; and the port's own
+                      keys: command, exit_code, import_seconds (torch
+                      and the subcommand), kernel_launches and
+                      native_io (the native host decoder was loaded)
 """
 
 from __future__ import annotations
 
-import json
 import sys
 import time
 
@@ -55,8 +57,8 @@ def usage() -> str:
     for name in sorted(PROGS):
         lines.append(f"{name:<11}: {PROGS[name][0]}")
     lines += ["", "global flags (before or after the subcommand):",
-              "  --metrics-out FILE  JSON run report (provenance, kernel "
-              "launches, stage seconds)"]
+              "  --metrics-out FILE  JSON run manifest (provenance, "
+              "spans, counters, kernel launches)"]
     return "\n".join(lines)
 
 
@@ -108,30 +110,25 @@ def _run_command(prog: str, argv: list[str]) -> int:
     return int(ret or 0)
 
 
-def _write_report(path: str, prog: str, argv: list[str], rc: int,
-                  seconds: float) -> None:
-    from .device import card_provenance
+def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
+                    seconds: float) -> None:
     from .io import native
-    from .obs import get_registry
+    from .obs.manifest import write_manifest
     from .ops import depth_kernel, pairhmm_kernel, rans_kernel
-    from .utils.profiling import process_totals
 
-    report = {
-        "command": prog,
-        "argv": argv,
-        "exit_code": rc,
-        "seconds": seconds,
-        "import_seconds": sum(IMPORT_SECONDS.values()),
-        "provenance": card_provenance(),
-        "kernel_launches": {**depth_kernel.LAUNCHES,
-                            **pairhmm_kernel.LAUNCHES,
-                            **rans_kernel.LAUNCHES},
-        "stage_seconds": process_totals(),
-        "counters": get_registry().snapshot()["counters"],
-        "native_io": native.get_lib() is not None,
-    }
-    with open(path, "w") as fh:
-        json.dump(report, fh, indent=1, sort_keys=True)
+    try:
+        write_manifest(
+            path, argv=[f"goleft-tpu-torch {prog}"] + argv,
+            spans={f"run.{prog}": {"seconds": seconds, "calls": 1}},
+            extra={"command": prog, "exit_code": rc,
+                   "import_seconds": sum(IMPORT_SECONDS.values()),
+                   "kernel_launches": {**depth_kernel.LAUNCHES,
+                                       **pairhmm_kernel.LAUNCHES,
+                                       **rans_kernel.LAUNCHES},
+                   "native_io": native.get_lib() is not None})
+    except OSError as e:
+        print(f"goleft-tpu-torch: could not write --metrics-out: {e}",
+              file=sys.stderr)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -158,11 +155,11 @@ def main(argv: list[str] | None = None) -> int:
         rc = _run_command(prog, argv[1:])
         return rc
     finally:
-        # written even when the command failed: a failed run's report is
-        # the one most worth keeping
+        # written even when the command failed: a failed run's manifest
+        # is the one most worth keeping
         if metrics_out:
-            _write_report(metrics_out, prog, argv[1:], rc,
-                          time.perf_counter() - t0)
+            _write_manifest(metrics_out, prog, argv[1:], rc,
+                            time.perf_counter() - t0)
 
 
 if __name__ == "__main__":

@@ -6,15 +6,20 @@ matrix bytes: ``#chrom start end sample...`` rows of round-half-up
 integer window means, what the reference's ``depthwed`` derives from
 per-sample ``depth`` beds.
 
-Engines, per (sample, shard):
-  - ``hybrid`` (the ``auto`` choice on an all-CRAM cohort): the CRAM
-    handle's ``window_reduce``, numpy on the host, int64 window sums.
-  - ``device``: the sample's filtered, clipped segments through the
-    depth command's ``DepthEngine``, i.e. the hand-written depth kernel
+Engines, per (sample, shard), chosen as the reference chooses them:
+  - ``hybrid`` (the ``auto`` choice when every input has a fused
+    reducer: a CRAM, or a BAM opened with the native library): the
+    handle's ``window_reduce`` on the host, exact int64 window sums. A
+    BAM streams through csrc/fastio.cpp's lean window accumulation (the
+    capped dense pass reruns a region only where a pileup could reach
+    the cap); a CRAM decodes and sums in numpy. No kernel runs, as in
+    the reference.
+  - ``device`` (``auto`` when a BAM has no native library): the
+    sample's filtered, clipped segments through the depth command's
+    ``DepthEngine``, i.e. the hand-written depth kernel
     (csrc/depth_kernel.cu), one call per sample per shard; its window
     sums are the JAX package's f32 sums, exact while window x cap <
-    2^24. ``auto`` picks it whenever the cohort holds a BAM, since the
-    fused BAM reducer of the reference's hybrid engine is not ported.
+    2^24.
 
 ``--decode-device`` installs ops/rans_device.py's DeviceBlockDecoder on
 every CRAM handle: the rANS-Nx16 entropy stage of each container runs
@@ -35,7 +40,7 @@ import sys
 import numpy as np
 
 from ..device import resolve_device
-from ..io.bai import read_bai
+from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
 from ..io.cram import is_remote
 from ..io.fai import read_fai, write_fai
@@ -172,12 +177,13 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
             get_logger("cohortdepth").warning(
                 "--decode-device: no CRAM inputs in this cohort; the flag "
                 "is a no-op")
+    # a fused reducer: a BAM opened with the native library, or a CRAM
+    fused = all(getattr(h, "native", False) or c
+                for h, c in zip(handles, is_cram))
     if engine == "auto":
-        engine = "hybrid" if all(is_cram) else "device"
-    if engine == "hybrid" and not all(is_cram):
-        raise SystemExit("cohortdepth: --engine hybrid on BAM input needs "
-                         "the fused BAM reducer, which is not ported to "
-                         "goleft_tpu_torch yet; use --engine device")
+        engine = "hybrid" if fused else "device"
+    if engine == "hybrid" and not fused:
+        raise SystemExit("cohortdepth: engine=hybrid needs the native io")
     depth_engine = None
     if engine == "device":
         max_span = max(e - (s // window) * window for _, s, e in regions)
@@ -206,9 +212,14 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
             if tid < 0:
                 return fallback()
             if depth_engine is None:
+                voff = None
+                if bais[i] is not None:  # a BAM: start at its index
+                    voff = query_voffset(bais[i], tid, s)
+                    if voff is None:
+                        return fallback()
                 return h.window_reduce(tid, s, e, w0, n_win * window,
                                        window, DEPTH_CAP_EXTRA, mapq,
-                                       DEPTH_SKIP_FLAGS)
+                                       DEPTH_SKIP_FLAGS, voffset=voff)
             seg_s, seg_e = _decode_shard_segments(h, bais[i], tid, s, e,
                                                   mapq)
             with timer.stage("reduce"):
@@ -322,9 +333,10 @@ def main(argv=None):
                         "capped at 8)")
     p.add_argument("--engine", choices=("auto", "hybrid", "device"),
                    default="auto",
-                   help="hybrid: host window reduction of CRAM inputs (the "
-                        "default on an all-CRAM cohort); device: segments "
-                        "to the depth kernel on the card")
+                   help="hybrid: exact host window reduction (the "
+                        "default when the native io is loaded or every "
+                        "input is a CRAM); device: segments to the depth "
+                        "kernel on the card")
     p.add_argument("--prefetch-depth", type=int, default=0,
                    help="decode up to N shards ahead of the shard being "
                         "emitted (0 = serial path, identical output)")

@@ -18,7 +18,7 @@ quarantined: the rest of the table is written, the summary goes to
 stderr (and ``--quarantine-out``), and the run exits 3. Bad input exits
 1 with one line (the CLI's contract).
 
-Stages (``--metrics-out`` ``stage_seconds``): ``load-validate``, then
+Stages (the ``--metrics-out`` manifest's ``spans``): ``load-validate``, then
 ops/pairhmm.py's ``encode-pack``, ``device-h2d``, ``device-kernel``,
 ``device-d2h`` and ``host-fold``, then
 ``genotype-format``.

@@ -1,10 +1,11 @@
 // Host-IO fast path of the port: BGZF block scan/inflate/deflate, BAM
 // record decode, the streaming segment walk that feeds the depth kernel,
-// the .bai structure scan and the depth/callable BED row formatters.
+// the host-side window reductions of cohortdepth's hybrid engine, the
+// .bai structure scan and the depth/callable BED row formatters.
 //
 // A copy of the JAX package's csrc/fastio.cpp trimmed to the entry points
-// goleft_tpu_torch/io/native.py binds; the CRAM codecs and the host-side
-// window reductions are left out. Build (done lazily by native.py):
+// goleft_tpu_torch/io/native.py binds; the CRAM codecs are left out.
+// Build (done lazily by native.py):
 //   g++ -O3 -shared -fPIC fastio.cpp -lz -ldeflate -o libgoleftio.so
 // or with -DNO_LIBDEFLATE -lz where libdeflate is missing.
 
@@ -406,7 +407,141 @@ static long bsg_walk(void* stv, const uint8_t* buf, long have,
     return bam_walk_records((BsgState*)stv, buf, have, rpos_io);
 }
 
+// Lemire's fast division: magic = floor(2^64/window)+1 gives exact
+// j/window for 0 <= j < 2^32 (window >= 2; magic 0 flags window == 1).
+static inline uint64_t win_magic_for(long window) {
+    if (window <= 1) return 0;
+    return (uint64_t)(((unsigned __int128)1 << 64) / (uint64_t)window) + 1;
+}
+
+static inline long win_idx(long j, uint64_t magic) {
+    if (!magic) return j;  // window == 1
+    return (long)((unsigned __int128)(uint64_t)j * magic >> 64);
+}
+
+// Dense accumulator: per-base coverage deltas (delta holds length+1
+// zeroed int32); exact under depth_cap via bwr_tail's capped cumsum.
+struct BwrState : WalkCommon {
+    int32_t* delta;
+    inline void segment(long s, long e) {
+        delta[s] += 1;
+        delta[e] -= 1;
+    }
+};
+
+// Lean accumulator: each clipped segment adds its overlap directly to
+// the 1-2 windows it spans; wcount bounds max pileup depth per window.
+struct BwaState : WalkCommon {
+    long window;
+    uint64_t win_magic;  // see win_magic_for
+    int64_t* wsums;
+    int32_t* wcount;
+    inline void segment(long s, long e) {
+        long wl = win_idx(s, win_magic);
+        long wh = win_idx(e - 1, win_magic);
+        if (wl == wh) {
+            wsums[wl] += e - s;
+            wcount[wl] += 1;
+        } else {
+            for (long w = wl; w <= wh; w++) {
+                long a = w * window, b = a + window;
+                long lo = s > a ? s : a, hi = e < b ? e : b;
+                wsums[w] += hi - lo;
+                wcount[w] += 1;
+            }
+        }
+    }
+};
+
+static long bwr_walk(void* stv, const uint8_t* buf, long have,
+                     long* rpos_io) {
+    return bam_walk_records((BwrState*)stv, buf, have, rpos_io);
+}
+
+static long bwa_walk(void* stv, const uint8_t* buf, long have,
+                     long* rpos_io) {
+    return bam_walk_records((BwaState*)stv, buf, have, rpos_io);
+}
+
+// Capped cumsum + region mask + window sums in one scan, re-zeroing each
+// delta entry as it is consumed. Windows fully inside [rs, re) skip the
+// per-base mask test and skip 8-wide runs of zero deltas (most of the
+// array at typical coverage — depth only changes at read boundaries).
+static void bwr_tail(long length, long window, long rs, long re_,
+                     int depth_cap, int32_t* delta, int64_t* wsums) {
+    long n_win = length / window;
+    int64_t run = 0;
+    const int64_t cap64 = depth_cap;
+    for (long wi = 0; wi < n_win; wi++) {
+        int64_t acc = 0;
+        long base = wi * window;
+        long wend = base + window;
+        if (base >= rs && wend <= re_) {
+            int64_t capped = run < cap64 ? run : cap64;
+            long j = base;
+            for (; j + 8 <= wend; j += 8) {
+                uint64_t a0, a1, a2, a3;
+                memcpy(&a0, delta + j, 8);
+                memcpy(&a1, delta + j + 2, 8);
+                memcpy(&a2, delta + j + 4, 8);
+                memcpy(&a3, delta + j + 6, 8);
+                if ((a0 | a1 | a2 | a3) == 0) {
+                    acc += capped * 8;  // flat run, already zeroed
+                    continue;
+                }
+                for (long k = j; k < j + 8; k++) {
+                    run += delta[k];
+                    delta[k] = 0;
+                    acc += run < cap64 ? run : cap64;
+                }
+                capped = run < cap64 ? run : cap64;
+            }
+            for (; j < wend; j++) {
+                run += delta[j];
+                delta[j] = 0;
+                acc += run < cap64 ? run : cap64;
+            }
+        } else {
+            for (long j = base; j < wend; j++) {
+                run += delta[j];
+                delta[j] = 0;
+                if (j >= rs && j < re_)
+                    acc += run < cap64 ? run : cap64;
+            }
+        }
+        wsums[wi] = acc;
+    }
+    delta[length] = 0;  // clipped endpoints land here
+}
+
 extern "C" {
+
+// Fused decode + window reduction over an UNCOMPRESSED body buffer: walk
+// BAM records and accumulate per-window depth sums directly, in int64 —
+// the cohortdepth hybrid engine's exact sums. Returns kept-record count,
+// or a negative bam_decode error code.
+long bam_window_reduce(const uint8_t* body, long body_len, long offset,
+                       int target_tid, int start, int end,
+                       long w0, long length, long window,
+                       int depth_cap, int min_mapq, int flag_mask,
+                       int64_t* wsums, int32_t* delta_scratch,
+                       long* consumed_out, int32_t* done_out) {
+    BwrState st = {{target_tid, start, end, w0, length, min_mapq,
+                    flag_mask, 0}, delta_scratch};
+    long off = offset;
+    long status = bwr_walk(&st, body, body_len, &off);
+    if (status < 0) {
+        memset(delta_scratch, 0, (length + 1) * sizeof(int32_t));
+        return status;
+    }
+    // done=1: clean stop or exact EOF; done=0: ended mid-record — the
+    // caller must extend the inflate window.
+    *done_out = (status == 1 || off == body_len) ? 1 : 0;
+    *consumed_out = off - offset;
+    bwr_tail(length, window, (long)start - w0, (long)end - w0,
+             depth_cap, delta_scratch, wsums);
+    return st.nk;
+}
 
 // Generic streaming loop: inflate BGZF blocks from compressed offset
 // c_begin into a small recycled ring buffer and invoke `walk` on the
@@ -528,6 +663,60 @@ static long bgzf_stream_walk(const uint8_t* comp, long comp_len,
     free(buf);
 #undef BSW_FAIL
     return status;
+}
+
+// Streaming fused inflate + decode + window reduction over the RAW BGZF
+// file (exact capped semantics — see bam_window_reduce). Stops at the
+// region's clean stop or EOF. Returns kept-record count or a negative
+// error.
+long bam_window_reduce_stream(const uint8_t* comp, long comp_len,
+                              long c_begin, long in_block,
+                              int target_tid, int start, int end,
+                              long w0, long length, long window,
+                              int depth_cap, int min_mapq, int flag_mask,
+                              int check_crc,
+                              int64_t* wsums, int32_t* delta_scratch) {
+    BwrState st = {{target_tid, start, end, w0, length, min_mapq,
+                    flag_mask, 0}, delta_scratch};
+    long status = bgzf_stream_walk(comp, comp_len, c_begin, in_block,
+                                   check_crc, bwr_walk, &st);
+    if (status < 0) {
+        memset(delta_scratch, 0, (length + 1) * sizeof(int32_t));
+        return status;
+    }
+    bwr_tail(length, window, (long)start - w0, (long)end - w0,
+             depth_cap, delta_scratch, wsums);
+    return st.nk;
+}
+
+// Streaming fused inflate + lean window accumulation (see BwaState):
+// no dense per-base pass. wsums/wcount are (length/window) int64/int32,
+// zeroed HERE. wcount[w] counts segments touching window w, an upper
+// bound on its pileup depth; max_overlap_out reports max(wcount). When
+// it exceeds depth_cap the uncapped sums may be inexact and the caller
+// must rerun the shard via bam_window_reduce_stream. Other semantics and
+// error codes match bam_window_reduce_stream.
+long bam_window_acc_stream(const uint8_t* comp, long comp_len,
+                           long c_begin, long in_block,
+                           int target_tid, int start, int end,
+                           long w0, long length, long window,
+                           int min_mapq, int flag_mask, int check_crc,
+                           int64_t* wsums, int32_t* wcount,
+                           long* max_overlap_out) {
+    long n_win = length / window;
+    memset(wsums, 0, n_win * sizeof(int64_t));
+    memset(wcount, 0, n_win * sizeof(int32_t));
+    BwaState st = {{target_tid, start, end, w0, length, min_mapq,
+                    flag_mask, 0},
+                   window, win_magic_for(window), wsums, wcount};
+    long status = bgzf_stream_walk(comp, comp_len, c_begin, in_block,
+                                   check_crc, bwa_walk, &st);
+    if (status < 0) return status;
+    long mx = 0;
+    for (long w = 0; w < n_win; w++)
+        if (wcount[w] > mx) mx = wcount[w];
+    *max_overlap_out = mx;
+    return st.nk;
 }
 
 // Streaming segment extraction for the device segment path: walk the

@@ -57,6 +57,19 @@ def nvidia_smi_line() -> str:
         else "not available"
 
 
+def backend_provenance(device=None) -> dict:
+    """The run manifest's backend block: :func:`card_provenance` plus
+    ``platform`` ("gpu" when the run's device, as :func:`resolve_device`
+    takes it, is a visible card; "cpu" when the caller asked for the CPU
+    or no card is visible), ``device_kind`` and ``device_count``."""
+    prov = card_provenance()
+    gpu = (torch.device("cuda" if device is None else device).type
+           == "cuda" and torch.cuda.is_available())
+    return {**prov, "platform": "gpu" if gpu else "cpu",
+            "device_kind": prov["device"] if gpu else "cpu",
+            "device_count": prov["device_count"] if gpu else 1}
+
+
 def card_provenance() -> dict:
     """torch / CUDA versions, the visible device and its power limit."""
     cuda = torch.cuda.is_available()

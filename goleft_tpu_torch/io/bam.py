@@ -3,8 +3,10 @@
 A copy of the JAX package's io/bam.py trimmed to what ``depth`` uses on
 BAM input: header parsing, record decode into columnar arrays, the lazy
 native region-streaming handle whose ``read_segments`` feeds the depth
-kernel, the pure-Python fallback adapter, and the record writer used to
-fabricate test fixtures. CRAM input opens as io/cram.py's CramFile.
+kernel and whose ``window_reduce`` gives cohortdepth's hybrid engine its
+exact window sums, the pure-Python fallback adapter, and the record
+writer used to fabricate test fixtures. CRAM input opens as io/cram.py's
+CramFile.
 
 CIGAR op semantics (spec table): M/=/X consume query+ref, D/N consume ref
 only, I/S consume query only, H/P consume neither. Depth counts only
@@ -330,6 +332,10 @@ class BamFile:
     decode threads scale. Requires the native library.
     """
 
+    #: the native library is loaded: cohortdepth's hybrid engine can
+    #: run ``window_reduce`` on this handle
+    native = True
+
     def __init__(self, data):
         from . import native
 
@@ -421,22 +427,49 @@ class BamFile:
 
         if end is None or end < 0:
             raise ValueError("read_segments requires an explicit end")
-        if voffset is not None:
-            c_begin = int(self._co[self._block_of(voffset)])
-            in_block = voffset & 0xFFFF
-        else:
-            c_begin = 0
-            in_block = self._body_start
         # cap heuristic: ~5x coverage of 100bp reads over the span; an
         # undersized cap costs one exact-size re-walk
         return native.bam_segments_stream(
-            self._comp, c_begin, in_block, tid, start, end,
+            self._comp, *self._stream_start(voffset), tid, start, end,
             min_mapq, flag_mask,
             cap_hint=max(65536, (end - start) // 16))
+
+    def window_reduce(self, tid: int, start: int, end: int, w0: int,
+                      length: int, window: int, depth_cap: int,
+                      min_mapq: int, flag_mask: int,
+                      voffset: int | None = None) -> np.ndarray:
+        """Host-fused decode + per-window depth sums of one region:
+        int64 sums over the [w0, w0 + length) window grid, exact (the
+        cohortdepth hybrid engine; csrc/fastio.cpp::bam_window_reduce).
+        The lean direct-window accumulation runs first; its max_overlap
+        bound proves whether ``depth_cap`` could bind, and only then
+        does the capped dense pass rerun the region. Both stream the
+        compressed file through a small ring and release the GIL."""
+        from . import native
+
+        at = self._stream_start(voffset)
+        acc = native.bam_window_acc_stream(
+            self._comp, *at, tid, start, end, w0, length, window,
+            min_mapq, flag_mask)
+        if acc["max_overlap"] <= depth_cap:
+            return acc["wsums"]
+        return native.bam_window_reduce_stream(
+            self._comp, *at, tid, start, end, w0, length, window,
+            depth_cap, min_mapq, flag_mask)["wsums"]
+
+    def _stream_start(self, voffset: int | None) -> tuple[int, int]:
+        """(compressed offset of the first block, uncompressed skip into
+        it) for a streaming walk from ``voffset``, or from the first
+        record."""
+        if voffset is None:
+            return 0, self._body_start
+        return int(self._co[self._block_of(voffset)]), voffset & 0xFFFF
 
 
 class _PyBamAdapter:
     """BamFile-compatible shard decoder over the pure-Python reader."""
+
+    native = False  # no window_reduce: cohortdepth takes the device engine
 
     def __init__(self, data):
         self._data = data if isinstance(data, bytes) else bytes(data)

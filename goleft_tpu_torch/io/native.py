@@ -81,8 +81,9 @@ def get_lib() -> ctypes.CDLL | None:
                 return None
             lib = ctypes.CDLL(LIB)
         for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
-                     "bam_decode", "bam_segments_stream", "bai_scan",
-                     "format_depth_rows", "format_class_rows"):
+                     "bam_decode", "bam_segments_stream", "bam_window_reduce",
+                     "bam_window_reduce_stream", "bam_window_acc_stream",
+                     "bai_scan", "format_depth_rows", "format_class_rows"):
             getattr(lib, name).restype = ctypes.c_long
         _lib = lib
         return _lib
@@ -377,3 +378,113 @@ def bam_segments_stream(comp, c_begin: int, in_block: int,
             # copy: a slice view would pin the full cap-sized buffers
             return (seg_s[:n.value].copy(), seg_e[:n.value].copy())
         cap = int(n.value) + 16  # one exact-size retry
+
+
+def _window_args(end: int, length: int, window: int, what: str) -> int:
+    if end < 0:
+        raise ValueError(f"{what} requires an explicit end")
+    if length % window:
+        raise ValueError("length must be a multiple of window")
+    return length // window
+
+
+def bam_window_reduce(body: np.ndarray, offset: int, target_tid: int,
+                      start: int, end: int, w0: int, length: int,
+                      window: int, depth_cap: int, min_mapq: int,
+                      flag_mask: int):
+    """Fused decode + per-window depth sums over an uncompressed body
+    (csrc/fastio.cpp::bam_window_reduce): clip to [start, end), capped
+    cumsum, the [w0, w0 + length) window grid, int64 sums. Returns
+    dict(wsums int64 (length // window,), n_kept, consumed, done) or None
+    when native is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_win = _window_args(end, length, window, "bam_window_reduce")
+    wsums = np.empty(n_win, dtype=np.int64)
+    delta = np.zeros(length + 1, dtype=np.int32)  # the C side wants zeros
+    consumed = ctypes.c_long(0)
+    done = ctypes.c_int32(0)
+    nk = lib.bam_window_reduce(
+        _ptr(body), ctypes.c_long(len(body)), ctypes.c_long(offset),
+        ctypes.c_int(target_tid), ctypes.c_int(start), ctypes.c_int(end),
+        ctypes.c_long(w0), ctypes.c_long(length), ctypes.c_long(window),
+        ctypes.c_int(depth_cap), ctypes.c_int(min_mapq),
+        ctypes.c_int(flag_mask),
+        _ptr(wsums, ctypes.c_int64), _ptr(delta, ctypes.c_int32),
+        ctypes.byref(consumed), ctypes.byref(done),
+    )
+    if nk < 0:
+        raise ValueError(f"bam_window_reduce: {_BAM_ERRS.get(int(nk), nk)}")
+    return {"wsums": wsums, "n_kept": int(nk),
+            "consumed": int(consumed.value), "done": bool(done.value)}
+
+
+def bam_window_reduce_stream(comp, c_begin: int, in_block: int,
+                             target_tid: int, start: int, end: int,
+                             w0: int, length: int, window: int,
+                             depth_cap: int, min_mapq: int,
+                             flag_mask: int,
+                             check_crc: bool | None = None):
+    """:func:`bam_window_reduce` streamed over the raw BGZF bytes: each
+    block inflates into a small recycled ring and its records are walked
+    cache-hot. Returns dict(wsums int64, n_kept) or None when native is
+    unavailable. ``check_crc`` as in :func:`bam_segments_stream`."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_win = _window_args(end, length, window, "bam_window_reduce_stream")
+    if check_crc is None:
+        check_crc = not os.environ.get("GOLEFT_TPU_SKIP_CRC")
+    buf = _as_u8(comp)
+    wsums = np.empty(n_win, dtype=np.int64)
+    delta = np.zeros(length + 1, dtype=np.int32)  # the C side wants zeros
+    nk = lib.bam_window_reduce_stream(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(c_begin),
+        ctypes.c_long(in_block),
+        ctypes.c_int(target_tid), ctypes.c_int(start), ctypes.c_int(end),
+        ctypes.c_long(w0), ctypes.c_long(length), ctypes.c_long(window),
+        ctypes.c_int(depth_cap), ctypes.c_int(min_mapq),
+        ctypes.c_int(flag_mask), ctypes.c_int(1 if check_crc else 0),
+        _ptr(wsums, ctypes.c_int64), _ptr(delta, ctypes.c_int32),
+    )
+    if nk < 0:
+        raise ValueError(f"bam_window_reduce_stream: {_stream_err(nk)}")
+    return {"wsums": wsums, "n_kept": int(nk)}
+
+
+def bam_window_acc_stream(comp, c_begin: int, in_block: int,
+                          target_tid: int, start: int, end: int,
+                          w0: int, length: int, window: int,
+                          min_mapq: int, flag_mask: int,
+                          check_crc: bool | None = None):
+    """Lean streaming accumulation: each aligned segment adds its clipped
+    overlap to the 1-2 windows it spans, with no per-base pass. The sums
+    are UNCAPPED; ``max_overlap`` bounds the pileup depth of every
+    window, so a caller enforcing ``depth_cap`` reruns the shard through
+    :func:`bam_window_reduce_stream` when ``max_overlap > depth_cap``.
+    Returns dict(wsums, n_kept, max_overlap) or None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_win = _window_args(end, length, window, "bam_window_acc_stream")
+    if check_crc is None:
+        check_crc = not os.environ.get("GOLEFT_TPU_SKIP_CRC")
+    buf = _as_u8(comp)
+    wsums = np.empty(n_win, dtype=np.int64)
+    wcount = np.empty(n_win, dtype=np.int32)
+    mx = ctypes.c_long(0)
+    nk = lib.bam_window_acc_stream(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(c_begin),
+        ctypes.c_long(in_block),
+        ctypes.c_int(target_tid), ctypes.c_int(start), ctypes.c_int(end),
+        ctypes.c_long(w0), ctypes.c_long(length), ctypes.c_long(window),
+        ctypes.c_int(min_mapq), ctypes.c_int(flag_mask),
+        ctypes.c_int(1 if check_crc else 0),
+        _ptr(wsums, ctypes.c_int64), _ptr(wcount, ctypes.c_int32),
+        ctypes.byref(mx),
+    )
+    if nk < 0:
+        raise ValueError(f"bam_window_acc_stream: {_stream_err(nk)}")
+    return {"wsums": wsums, "n_kept": int(nk),
+            "max_overlap": int(mx.value)}

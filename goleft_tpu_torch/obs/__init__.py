@@ -1,7 +1,8 @@
-"""Observability of the port: the process-wide counter registry and the
-logger tree (trimmed copies of the JAX package's obs/metrics.py and
-obs/logging.py). Spans and dispatch tracing are not ported; each kernel
-wrapper's launch count stands in for them."""
+"""Observability of the port: the process-wide counter registry, the
+logger tree and the run manifest (trimmed copies of the JAX package's
+obs/metrics.py, obs/logging.py and obs/manifest.py). Dispatch tracing is
+not ported: the manifest's spans are utils/profiling.py's stage totals,
+and each kernel wrapper's launch count stands in for device spans."""
 
 from .logging import get_logger
 from .metrics import Counter, MetricsRegistry, REGISTRY, get_registry

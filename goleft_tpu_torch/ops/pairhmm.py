@@ -16,7 +16,7 @@ pair's result is bitwise independent of its bucket's padding and of its
 neighbours: padding rows and steps are masked to exact zeros.
 
 Stages (``utils/profiling.py::StageTimer``, summed into the CLI's
-``--metrics-out`` report): ``encode-pack`` (encoding and packing),
+``--metrics-out`` manifest's ``spans``): ``encode-pack`` (encoding and packing),
 ``device-h2d``, ``device-kernel``, ``device-d2h`` and ``host-fold``.
 """
 

@@ -32,10 +32,13 @@ SCALE_EXP = 30
 #: cross-row scale differences are clipped to [_DMIN, _DMAX]
 _DMIN, _DMAX = -4, 3
 N_CODE = 4
-#: rows one CUDA block holds at once (csrc/pairhmm_kernel.cu MAX_THREADS);
-#: longer reads run as strips of this many rows
-MAX_ROWS = 1024
-#: float operations per cell of the recurrence, for the compute bound.
+#: a warp runs one pair; lane L holds R consecutive read rows of a strip
+#: of 32 R rows, R at most MAX_ROWS_PER_LANE (csrc/pairhmm_kernel.cu
+#: LANES, MAX_R); longer reads run as strips of 256 rows
+LANES = 32
+MAX_ROWS_PER_LANE = 8
+#: float operations per cell of the recurrence, for the compute bound;
+#: built with -fmad=false, each is an instruction of its own (no FMA).
 #: float32 (rescaled): M 3 mul + 2 add + prior mul + scale mul, I 2 mul
 #: + add + scale mul, D 2 mul + add, the two scale factors, rescale 2 max
 #: + 3 compares + 3 mul. float64 (unscaled): M 3 mul + 2 add + prior
@@ -63,7 +66,7 @@ def load_library() -> ctypes.CDLL:
                                      "pairhmm kernel")
         p, i32 = ctypes.c_void_p, ctypes.c_int
         lib.pairhmm_forward_launch.argtypes = [
-            i32, p, p, p, p, p, p, p, i32, i32, i32, p, p, p, p, p]
+            i32, p, p, p, p, p, p, p, i32, i32, i32, i32, p, p, p, p, p]
         lib.pairhmm_forward_launch.restype = ctypes.c_int
         lib.pairhmm_kernel_error_string.argtypes = [ctypes.c_int]
         lib.pairhmm_kernel_error_string.restype = ctypes.c_char_p
@@ -157,6 +160,15 @@ def forward_bucket_plain(reads_p, pm, px, rlens, haps, hlens, trans,
 
 # ---- wrapper ----------------------------------------------------------
 
+def launch_geometry(r1: int) -> tuple[int, int]:
+    """(R, strips) of a bucket of ``r1`` read rows: the rows each lane
+    holds, ceil(r1 / 32) clamped to [1, 8], and the strips of 32 R rows
+    a pair's warp runs for its longest possible read (a pair runs
+    rlen // 32R + 1 of them); more than one only at R = 8."""
+    rows = min(MAX_ROWS_PER_LANE, max(1, -(-r1 // LANES)))
+    return rows, -(-r1 // (LANES * rows))
+
+
 def _check(t: torch.Tensor, dtypes, name: str, shape: tuple):
     if t.dtype not in dtypes:
         raise TypeError(f"{name}: expected {dtypes}, got {t.dtype}")
@@ -173,11 +185,11 @@ def _launch(reads_p, pm, px, rlens, haps, hlens, trans):
     lib = load_library()
     contribs = torch.empty(b, steps, dtype=pm.dtype, device=dev)
     shifts = torch.empty(b, steps, dtype=torch.int32, device=dev)
-    strips = r1 > MAX_ROWS
-    rec_v = torch.empty(b * 6 * steps if strips else 0, dtype=pm.dtype,
-                        device=dev)
-    rec_s = torch.empty(b * 4 * steps if strips else 0, dtype=torch.int32,
-                        device=dev)
+    rows, strips = launch_geometry(r1)
+    rec_v = torch.empty(b * 6 * steps if strips > 1 else 0,
+                        dtype=pm.dtype, device=dev)
+    rec_s = torch.empty(b * 4 * steps if strips > 1 else 0,
+                        dtype=torch.int32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t.numel() else None
@@ -187,7 +199,8 @@ def _launch(reads_p, pm, px, rlens, haps, hlens, trans):
         rc = lib.pairhmm_forward_launch(
             int(pm.dtype == torch.float64), ptr(reads_p), ptr(pm), ptr(px),
             ptr(rlens), ptr(haps), ptr(hlens), ptr(trans), b, r1, hcap,
-            ptr(contribs), ptr(shifts), ptr(rec_v), ptr(rec_s), stream)
+            rows, ptr(contribs), ptr(shifts), ptr(rec_v), ptr(rec_s),
+            stream)
     if rc != 0:
         raise KernelFault("pairhmm kernel launch failed: "
                            + lib.pairhmm_kernel_error_string(rc).decode())

@@ -20,7 +20,7 @@ class Step:
     """One content-keyed unit of work.
 
     ``span``: a stage name the attempts are timed under (the
-    ``--metrics-out`` report's ``stage_seconds``), with ``attrs``
+    ``--metrics-out`` manifest's ``spans``), with ``attrs``
     describing the work. ``quarantine_key`` opts the step into graceful
     degradation: a step of an already-quarantined key short-circuits to
     ``fallback()``, and a step that fails permanently quarantines its key

@@ -24,7 +24,7 @@ from ..utils.profiling import StageTimer
 from .core import Step, StepOutcome
 
 #: the timer every step span records into (the process totals of
-#: utils/profiling.py carry them to the ``--metrics-out`` report)
+#: utils/profiling.py carry them to the ``--metrics-out`` manifest)
 SPANS = StageTimer()
 
 

@@ -2,7 +2,8 @@
 utils/profiling.py::StageTimer.
 
 Every ``stage`` use accumulates into the timer's own totals and into the
-process-wide totals that the CLI's ``--metrics-out`` report carries.
+process-wide totals that the ``spans`` block of the CLI's
+``--metrics-out`` run manifest carries (obs/manifest.py).
 """
 
 from __future__ import annotations
@@ -14,12 +15,15 @@ from collections import defaultdict
 
 _process_lock = threading.Lock()
 _process_totals: dict[str, float] = defaultdict(float)
+_process_calls: dict[str, int] = defaultdict(int)
 
 
-def process_totals() -> dict[str, float]:
-    """Seconds per stage name over every StageTimer of this process."""
+def process_spans() -> dict[str, dict]:
+    """{stage: {"seconds", "calls"}} over every StageTimer of this
+    process: the run manifest's ``spans`` shape."""
     with _process_lock:
-        return dict(_process_totals)
+        return {name: {"seconds": secs, "calls": _process_calls[name]}
+                for name, secs in _process_totals.items()}
 
 
 class StageTimer:
@@ -43,6 +47,7 @@ class StageTimer:
                 self.counts[name] += 1
             with _process_lock:
                 _process_totals[name] += dt
+                _process_calls[name] += 1
 
     def report(self) -> str:
         return "\n".join(

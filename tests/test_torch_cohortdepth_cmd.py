@@ -207,13 +207,127 @@ def test_mixed_bam_cram_cohort_matches_jax(mixed):
         assert out.getvalue() == want.getvalue(), kw
 
 
+@pytest.mark.parametrize("engine", ["auto", "hybrid"])
+@pytest.mark.parametrize("kind", ["bam", "mixed"])
+def test_bam_cohorts_hybrid_and_auto_match_jax(mixed, kind, engine):
+    """BAM and mixed BAM/CRAM cohorts on the hybrid engine (``auto``
+    picks it, as the reference does, when the native io is loaded):
+    byte-identical to the JAX package under the same engine, with the
+    lean window accumulation and under ``prefetch_depth``."""
+    cohort_paths, fa, bams = mixed
+    paths = bams if kind == "bam" else cohort_paths
+    want = io.StringIO()
+    assert jax_run(paths, reference=fa, window=500, out=want,
+                   engine=engine) == 0
+    for kw in ({}, dict(prefetch_depth=2), dict(processes=1)):
+        out = io.StringIO()
+        assert run_cohortdepth(paths, reference=fa, window=500, out=out,
+                               engine=engine, device=CPU, **kw) == 0
+        assert out.getvalue() == want.getvalue(), kw
+
+
+@pytest.fixture(scope="module")
+def c1_bam(tmp_path_factory):
+    """One BAM on a 1,000,000 bp contig whose one 1 Mb window sums to
+    20,499,999 bases (204,999 reads of 100M and one of 99M): the exact
+    mean 20.499999 rounds half up to 20, but the sum in f32 is
+    20,500,000, whose mean rounds to 21. Every window's pileup count
+    passes the cap, so the hybrid engine takes its capped dense pass."""
+    from goleft_tpu_torch.io.bai import write_bai
+    from tools.bulk_bam import write_bam_bulk
+
+    tmp = tmp_path_factory.mktemp("torch_c1")
+    ref_len, n = 1_000_000, 205_000
+    pos = np.sort(np.random.default_rng(5).integers(0, ref_len - 100, n))
+    cig = np.zeros(n, np.int64)
+    cig[n // 2] = 1
+    bam = str(tmp / "c1.bam")
+    write_bai(write_bam_bulk(bam, "chr1", ref_len, pos, cig,
+                             ["100M", "99M"], np.full(n, 60),
+                             np.zeros(n, np.int64)), bam + ".bai")
+    fai = tmp / "r.fa.fai"
+    fai.write_text(f"chr1\t{ref_len}\t6\t60\t61\n")
+    return bam, str(fai)
+
+
+def test_bam_window_sum_past_f32_matches_jax(c1_bam):
+    """``auto`` on a BAM cohort sums windows exactly as the reference
+    does: 20, not the device engine's f32 21."""
+    bam, fai = c1_bam
+    want = io.StringIO()
+    assert jax_run([bam], fai=fai, window=1_000_000, out=want) == 0
+    assert want.getvalue().splitlines()[1:] == ["chr1\t0\t1000000\t20"]
+    for engine in ("auto", "hybrid"):
+        out = io.StringIO()
+        assert run_cohortdepth([bam], fai=fai, window=1_000_000, out=out,
+                               engine=engine, device=CPU) == 0
+        assert out.getvalue() == want.getvalue(), engine
+    out = io.StringIO()
+    assert run_cohortdepth([bam], fai=fai, window=1_000_000, out=out,
+                           engine="device", device=CPU) == 0
+    assert out.getvalue().splitlines()[1] == "chr1\t0\t1000000\t21"
+
+
+def test_native_window_reductions_agree(c1_bam, mixed):
+    """The three host reductions of csrc/fastio.cpp on one region: the
+    lean accumulation (uncapped), the capped dense pass over the
+    compressed stream and over the inflated body; equal where the cap
+    cannot bind, and the cap lowers the dense sums where it can."""
+    from goleft_tpu_torch.io import native
+    from goleft_tpu_torch.io.bam import DEPTH_SKIP_FLAGS, BamFile
+
+    for bam, end, window in ((c1_bam[0], 1_000_000, 1_000),
+                             (mixed[2][0], 25_000, 500)):
+        h = BamFile.from_file(bam)
+        args = (0, 0, end, 0, end, window)
+        acc = native.bam_window_acc_stream(h._comp, 0, h._body_start,
+                                           *args, 1, DEPTH_SKIP_FLAGS)
+        body = native.bgzf_inflate_range(h._comp, 0, len(h._comp),
+                                         h._total)
+        for cap in (2500, 3):
+            dense = native.bam_window_reduce_stream(
+                h._comp, 0, h._body_start, *args, cap, 1,
+                DEPTH_SKIP_FLAGS)["wsums"]
+            eager = native.bam_window_reduce(
+                body, h._body_start, *args, cap, 1, DEPTH_SKIP_FLAGS)
+            assert eager["done"] and eager["n_kept"] == acc["n_kept"]
+            assert np.array_equal(eager["wsums"], dense)
+            if cap >= acc["max_overlap"]:
+                assert np.array_equal(acc["wsums"], dense)
+            else:
+                assert (dense <= acc["wsums"]).all()
+                assert (dense < acc["wsums"]).any()
+        assert acc["wsums"].sum() == (20_499_999 if bam == c1_bam[0]
+                                      else 700 * 100)
+        np.testing.assert_array_equal(
+            h.window_reduce(*args, 2500, 1, DEPTH_SKIP_FLAGS),
+            acc["wsums"])
+
+
 def test_refusals(mixed, cohort, monkeypatch):
-    """What is not ported says so in one line."""
+    """What is not ported says so in one line; the hybrid engine on
+    BAM input runs, and needs the native io as in the reference."""
     cohort_paths, fa, bams = mixed
     crams, fai, _ = cohort
-    with pytest.raises(SystemExit, match="fused BAM reducer"):
-        run_cohortdepth(bams, reference=fa, engine="hybrid",
-                        out=io.StringIO(), device=CPU)
+    want = io.StringIO()
+    assert jax_run(bams, reference=fa, engine="hybrid", window=250,
+                   out=want) == 0
+    got = io.StringIO()
+    assert run_cohortdepth(bams, reference=fa, engine="hybrid", out=got,
+                           device=CPU) == 0
+    assert got.getvalue() == want.getvalue()
+    from goleft_tpu_torch.io import native
+
+    with monkeypatch.context() as m:
+        m.setattr(native, "get_lib", lambda: None)
+        with pytest.raises(SystemExit, match="needs the native io"):
+            run_cohortdepth(bams, reference=fa, engine="hybrid",
+                            out=io.StringIO(), device=CPU)
+        # auto takes the device engine where a BAM has no native io
+        out = io.StringIO()
+        assert run_cohortdepth(bams, reference=fa, out=out,
+                               device=CPU) == 0
+        assert out.getvalue() == want.getvalue()
     with pytest.raises(SystemExit, match="checkpoint-dir"):
         run_cohortdepth(crams, fai=fai, checkpoint_dir="ck",
                         out=io.StringIO(), device=CPU)
@@ -234,9 +348,12 @@ def test_cli_without_cuda_exits_1(cohort, monkeypatch, capsys, tmp_path):
                    "-w", "500", "--decode-device", *crams])
     assert rc == 1
     assert "no CUDA device" in capsys.readouterr().err
-    import json
+    from goleft_tpu.obs.manifest import load_manifest
 
-    assert json.loads(report.read_text())["kernel_launches"]["rans"] == 0
+    rep = load_manifest(str(report))
+    assert rep["kernel_launches"]["rans"] == 0
+    assert rep["command"] == "cohortdepth" and rep["exit_code"] == 1
+    assert rep["backend"]["platform"] == "cpu"
 
 
 # ---- the CRAM reader ---------------------------------------------------

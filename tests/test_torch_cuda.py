@@ -50,7 +50,9 @@ def test_kernel_equals_plain_on_card():
         assert torch.equal(g, w)
 
 
-def _pairhmm_bucket(rng, b, read_len, hap_len, dtype):
+def _pairhmm_bucket(rng, b, read_len, hap_len, dtype, r_pad=None):
+    """``b`` pairs packed as one bucket: by ``bucket_pairs``' padding, or
+    at exactly ``r_pad`` + 1 rows."""
     from goleft_tpu_torch.ops import pairhmm as tph
 
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -65,25 +67,34 @@ def _pairhmm_bucket(rng, b, read_len, hap_len, dtype):
     haps = [tph.encode_seq(h) for h in haps]
     errs = [tph.phred_to_err(rng.integers(2, 42, read_len)) for _ in reads]
     (rp, hp), idxs = next(iter(tph.bucket_pairs(reads, haps).items()))
-    packed = tph._pack_bucket(idxs, reads, errs, haps, rp, hp, dtype)
+    packed = tph._pack_bucket(idxs, reads, errs, haps, r_pad or rp, hp,
+                              dtype)
     trans = tph.transition_probs().astype(dtype)
     return [torch.from_numpy(a).cuda() for a in (*packed, trans)]
 
 
+#: (read bp, hap bp, pairs, r_pad): 150 bp reads (r1 161, R 6), 1,100 bp
+#: reads (r1 1,121: five strips of 256 rows), and reads filling r1 =
+#: 32 R and 32 R + 1 rows for R = 1..8: each compiled R and the next
+#: one's first r1; 256 | 257 is the strip edge
+_PAIRHMM_CASES = [(150, 400, 64, None), (1100, 200, 3, None)] + [
+    (r1 - 1, 120, 6, r1 - 1) for rows in range(1, 9)
+    for r1 in (32 * rows, 32 * rows + 1)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
-@pytest.mark.parametrize("read_len,hap_len,b", [(150, 400, 64),
-                                                (1100, 200, 3)])
-def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b):
-    """f32 rescaled and f64 unscaled; 150 bp reads, and 1,100 bp reads
-    whose rows take two strips of one block; contribs and shifts
-    bitwise."""
+@pytest.mark.parametrize("read_len,hap_len,b,r_pad", _PAIRHMM_CASES)
+def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b,
+                                             r_pad):
+    """f32 rescaled and f64 unscaled, contribs and shifts bitwise: 150
+    bp reads, 1,100 bp reads in strips, and every R with its edges."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
 
     t = _pairhmm_bucket(np.random.default_rng(read_len), b, read_len,
-                        hap_len, dtype)
+                        hap_len, dtype, r_pad)
     rescale = dtype == np.float32
     before = pk.LAUNCHES["pairhmm"]
     got = pk.forward_bucket(*t, rescale=rescale)
@@ -95,6 +106,29 @@ def test_pairhmm_kernel_equals_plain_on_card(dtype, read_len, hap_len, b):
         assert torch.equal(g, w), (g.double() - w.double()).abs().max()
     if not rescale:
         assert not got[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_pairhmm_kernel_adoption_trap_on_card(dtype):
+    """chip_smoke.py's adoption-trap bucket (pm = 0 where each read's
+    first base meets its hap's first base, so cell (1, 1) is all zero
+    inside the valid area; zero priors in other rows): bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import ph_trap_bucket
+    from goleft_tpu_torch.ops import pairhmm as tph
+    from goleft_tpu_torch.ops import pairhmm_kernel as pk
+
+    packed = ph_trap_bucket(np.random.default_rng(5), 64, 150, 416, dtype)
+    trans = tph.transition_probs().astype(dtype)
+    t = [torch.from_numpy(a).cuda() for a in (*packed, trans)]
+    rescale = dtype == np.float32
+    got = pk.forward_bucket(*t, rescale=rescale)
+    want = pk.forward_bucket_plain(*t, rescale=rescale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w), (g.double() - w.double()).abs().max()
 
 
 def _rans_streams(rng):

@@ -30,6 +30,7 @@ def _sources():
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
+                 "pairhmm_bench.py", "sass_loops.py",
                  "cohort_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
@@ -71,6 +72,8 @@ def test_cpu_depth_run_loads_no_jax(tmp_path):
         write_bai(build_bai(d + "/t.bam"), d + "/t.bam.bai")
         run_depth(d + "/t.bam", d + "/o", reference=d + "/r.fa",
                   window=100, device="cpu")
+        from goleft_tpu_torch.obs.manifest import write_manifest
+        write_manifest(d + "/m.json", argv=["depth"], device="cpu")
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
         print("LOADED", bad)
@@ -83,6 +86,12 @@ def test_cpu_depth_run_loads_no_jax(tmp_path):
     assert "LOADED []" in r.stdout, r.stdout
     rows = open(tmp_path / "o.depth.bed").read().splitlines()
     assert len(rows) == 10 and rows[0] == "chr1\t0\t100\t5.5"
+    # the run asked for the CPU: its manifest is never device evidence
+    from goleft_tpu.obs.manifest import load_manifest
+
+    man = load_manifest(str(tmp_path / "m.json"))
+    assert man["backend"]["platform"] == "cpu"
+    assert man["spans"]["host-decode"]["calls"] >= 1
 
 
 def test_cpu_pairhmm_run_loads_no_jax(tmp_path):
@@ -176,7 +185,7 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
 
 def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
     """The CLI's default run asks for the card: without one it exits 1
-    with one line naming the cause, and writes its report all the
+    with one line naming the cause, and writes its run manifest all the
     same."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("GOLEFT_TPU_DEBUG", raising=False)
@@ -195,11 +204,61 @@ def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
                    str(tmp_path / "o"), "-r", str(fa), str(bam)])
     assert rc == 1
     assert "no CUDA device" in capsys.readouterr().err
-    import json
+    from goleft_tpu.obs.manifest import load_manifest
 
-    rep = json.loads(report.read_text())
-    assert rep["exit_code"] == 1
+    rep = load_manifest(str(report))
+    assert rep["command"] == "depth" and rep["exit_code"] == 1
     assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0}
+    assert rep["backend"]["platform"] == "cpu"
+    assert rep["spans"]["run.depth"]["calls"] == 1
+
+
+def test_metrics_out_is_the_reference_run_manifest(tmp_path):
+    """``python -m goleft_tpu_torch --metrics-out FILE depth`` on the CPU
+    in a fresh process (no card: exit 1, one line): the JAX package's
+    ``load_manifest`` accepts the file as a ``goleft-tpu.run-manifest``
+    of its own schema; the backend says "cpu" and no kernel launched;
+    the port's own keys ride beside the required ones, and the port's
+    loader reads it the same."""
+    from goleft_tpu.obs import manifest as ref
+    from goleft_tpu_torch.io.bai import build_bai, write_bai
+    from goleft_tpu_torch.io.bam import BamWriter
+    from goleft_tpu_torch.obs import manifest as port
+
+    fa = tmp_path / "r.fa"
+    fa.write_text(">chr1\n" + "A" * 100 + "\n")
+    bam = tmp_path / "t.bam"
+    with open(bam, "wb") as fh:
+        BamWriter(fh, "", ["chr1"], [100]).close()
+    write_bai(build_bai(str(bam)), str(bam) + ".bai")
+    out = tmp_path / "run.json"
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    env.pop("GOLEFT_TPU_DEBUG", None)
+    r = subprocess.run(
+        [sys.executable, "-m", "goleft_tpu_torch", "--metrics-out",
+         str(out), "depth", "--prefix", str(tmp_path / "o"), "-r",
+         str(fa), str(bam)],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+        env=env)
+    assert r.returncode == 1 and "no CUDA device" in r.stderr, r.stderr
+    doc = ref.load_manifest(str(out))
+    assert doc["schema"] == ref.SCHEMA == port.SCHEMA
+    assert set(ref.REQUIRED_KEYS) == set(port.REQUIRED_KEYS) <= set(doc)
+    assert doc["backend"]["platform"] == "cpu"
+    assert doc["backend"]["device_kind"] == "cpu"
+    assert doc["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0}
+    assert doc["command"] == "depth" and doc["exit_code"] == 1
+    assert doc["argv"][0] == "goleft-tpu-torch depth"
+    assert doc["spans"]["run.depth"]["calls"] == 1
+    assert doc["import_seconds"] > 0 and "native_io" in doc
+    assert "counters" in doc["metrics"] and "stage_seconds" not in doc
+    assert re.fullmatch(r"[0-9a-f]{16}", doc["trace_id"])
+    assert port.load_manifest(str(out)) == doc
+    bad = dict(doc, schema="goleft-tpu.run-manifest/2.0")
+    (tmp_path / "bad.json").write_text(__import__("json").dumps(bad))
+    for loader in (ref.load_manifest, port.load_manifest):
+        with pytest.raises(ValueError, match="major"):
+            loader(str(tmp_path / "bad.json"))
 
 
 def test_cli_lists_depth():

@@ -14,6 +14,7 @@ import torch
 from goleft_tpu.commands import pairhmm_cmd as jcmd
 from goleft_tpu.models import genotype as jgt
 from goleft_tpu.models.candidates import write_candidates as jwrite
+from goleft_tpu.obs.manifest import load_manifest
 from goleft_tpu.resilience import faults as jfaults
 from goleft_tpu_torch import cli
 from goleft_tpu_torch.commands import pairhmm_cmd as tcmd
@@ -317,9 +318,11 @@ def test_cli_bad_input_and_missing_card_exit_1(docs, tmp_path, monkeypatch,
     assert cli.main(["pairhmm", "--metrics-out", str(report),
                      docs["small"]]) == 1
     assert "no CUDA device" in capsys.readouterr().err
-    rep = json.loads(report.read_text())
+    rep = load_manifest(str(report))
     assert rep["kernel_launches"]["pairhmm"] == 0
     assert rep["command"] == "pairhmm" and rep["exit_code"] == 1
+    assert rep["backend"]["platform"] == "cpu"
+    assert rep["spans"]["run.pairhmm"]["calls"] == 1
 
 
 def test_chip_smoke_windows_document(tmp_path):

@@ -332,3 +332,74 @@ def test_chip_smoke_row_oracle_matches_test_oracle():
                                        tph.encode_seq(h)) \
             if len(r) < 100 else want
         assert abs(cell - want) < 1e-12
+
+
+@pytest.mark.parametrize("r1,want", [
+    (2, (1, 1)), (32, (1, 1)), (33, (2, 1)), (161, (6, 1)), (224, (7, 1)),
+    (225, (8, 1)), (256, (8, 1)), (257, (8, 2)), (513, (8, 3)),
+    (1121, (8, 5))])
+def test_launch_geometry(r1, want):
+    """R = ceil(r1 / 32) clamped to [1, 8] rows a lane; strips of 32 R
+    rows, more than one only at R = 8 (csrc/pairhmm_kernel.cu refuses
+    any other pairing)."""
+    assert pk.launch_geometry(r1) == want
+    rows, strips = want
+    assert 32 * rows * strips >= r1 > 32 * rows * (strips - 1)
+    assert strips == 1 or rows == pk.MAX_ROWS_PER_LANE
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_plain_matches_xla_wavefront_on_adoption_trap(dtype,
+                                                       exact_xla_exp2):
+    """chip_smoke.py's adoption-trap bucket: every read's first base is
+    its hap's first base at pm = 0, so cell (1, 1) is all zero inside the
+    valid area, and other rows have zero priors; its all-zero cells must
+    adopt the counter the row above computes on the same diagonal. The
+    plain version against the reference's wavefront on the same arrays
+    (the spec the kernel is held to on the card): shifts equal, and the
+    folded log10 within 1e-6 in f32 (XLA's FMA contraction; exact
+    exp2 swapped in) and 1e-12 in f64."""
+    from chip_smoke import ph_trap_bucket
+
+    packed = ph_trap_bucket(np.random.default_rng(5), 16, 150, 416, dtype)
+    reads_p, pm, _, rlens, haps_p, _ = packed
+    assert (reads_p[:, 1] == haps_p[:, 0]).all() and not pm[:, 1].any()
+    assert (pm[:, 2:][np.arange(pm.shape[1] - 2) < rlens[:, None] - 1]
+            == 0).any()
+    rescale = dtype == np.float32
+    trans = jph.transition_probs().astype(dtype)
+    jc, js = (np.asarray(a) for a in jph._forward_bucket(
+        *packed, trans, rescale=rescale))
+    pc, ps = pk.forward_bucket(
+        *(torch.from_numpy(a) for a in (*packed, trans)), rescale=rescale)
+    np.testing.assert_array_equal(ps.numpy(), js)
+    if rescale:
+        assert js.any(), "the trap bucket renormalises no row"
+    got = tph._fold_contribs(pc.numpy(), ps.numpy())
+    want = jph._fold_contribs(jc, js)
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=1e-6 if rescale else 1e-12)
+
+
+def test_chip_smoke_reads_the_ptxas_report():
+    """chip_smoke.py's reading of ptxas's report: registers and spills
+    per instantiation (float or double, R)."""
+    import chip_smoke
+
+    log = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122pairhmm_forward_kernelIfLb1ELi6EEEvPKhPKT_S5_PKiS2_S7_S5_iiiPS3_PiS8_S9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122pairhmm_forward_kernelIfLb1ELi6EEEvPKhPKT_S5_PKiS2_S7_S5_iiiPS3_PiS8_S9_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 108 registers, used 0 barriers, 432 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122pairhmm_forward_kernelIdLb0ELi8EEEvPKhPKT_S5_PKiS2_S7_S5_iiiPS3_PiS8_S9_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122pairhmm_forward_kernelIdLb0ELi8EEEvPKhPKT_S5_PKiS2_S7_S5_iiiPS3_PiS8_S9_
+    8 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers, 432 bytes cmem[0]
+"""
+    assert chip_smoke.kernel_resources(log) == {
+        "float32 R6": {"registers": 108, "spill_stores": 0,
+                       "spill_loads": 0},
+        "float64 R8": {"registers": 255, "spill_stores": 4,
+                       "spill_loads": 8}}
+    assert chip_smoke.kernel_resources("") == {}

@@ -8,7 +8,7 @@ engine) with each checkout's package, in the order given and then
 reversed, ``--reps`` times; every matrix must equal the oracle. Prints
 one JSON line per run: the command and import seconds, the stage
 seconds and the decode and prefetch counters of its ``--metrics-out``
-report.
+run manifest (every checkout given must write one).
 
     python3 tools/cohort_bench.py [--reps N] DIR [DIR ...]
 """
@@ -59,15 +59,16 @@ def main(argv=None) -> int:
                                          f"differs from the oracle "
                                          f"({r.returncode}): "
                                          f"{r.stderr[-2000:]}")
-                with open(report) as fh:
-                    rep_ = json.load(fh)
+                rep_, cmd_s, stages = cs.read_manifest(report,
+                                                       "cohortdepth")
                 print(json.dumps({
                     "checkout": d, "rep": rep, "nvidia_smi": smi,
-                    "wall_s": wall, "command_s": rep_["seconds"],
+                    "wall_s": wall, "command_s": cmd_s,
                     "import_s": rep_["import_seconds"],
-                    "stage_seconds": rep_["stage_seconds"],
+                    "stage_seconds": stages,
                     "launches": rep_["kernel_launches"],
-                    "counters": {k: v for k, v in rep_["counters"].items()
+                    "counters": {k: v for k, v in
+                                 rep_["metrics"]["counters"].items()
                                  if k.startswith(("decode.", "prefetch."))},
                 }), flush=True)
     return 0
