@@ -12,13 +12,20 @@ Run from the root of a checkout, on a machine with one CUDA card:
    ptxas reports;
 3. holds the depth kernel against its plain PyTorch version on the card at
    one full production shard (10 Mb, 2,000,000 segments of 150 bp, window
-   250, max mean depth 100, cap 2600), on both wires, with edge cases
-   (a 10,000-segment hotspot in one 1024-base tile, endpoints at 0 and at
-   the shard end, keep-masked segments, a region strictly inside the
-   shard, segments of 65,536 bases and more, a gap that needs u16
-   fillers). Depth, window sums, classes and packed classes must be
-   bitwise equal; prints the kernel's and the plain version's median time
-   per shard from CUDA events, and its bound;
+   250, max mean depth 100, cap 2600), on both wires and on the u16 wire
+   with one 65,535-base segment more (the tile kernel's widest halo),
+   with edge cases (a 10,000-segment hotspot in one 1024-base region,
+   endpoints at 0 and at the shard end, keep-masked segments, a region
+   strictly inside the shard, segments of 65,536 bases and more, a gap
+   that needs u16 fillers), then the small cases of DEPTH_EDGES on both
+   wires (no segments, all in one tile past the cap, a length that is no
+   multiple of the tile, windows of 7, 251 and 250, one window wider
+   than a tile, window sums above 2^24, ...). Depth, window sums,
+   classes and packed classes must be bitwise equal; prints the
+   kernel's time per shard by CUDA events around one call and as device
+   time (a CUDA graph of 20 calls), the plain version's, the bound, and
+   the bytes a dense=False call allocates (it fails on the u16 wire if
+   they could hold a per-base int32 buffer);
 4. fabricates a coordinate-sorted 25 Mb BAM + BAI (5,000,000 reads of
    150 bp, MAPQ 0 / DUP / SECONDARY reads, D / N / S / I CIGARs, a pileup
    above the cap), runs ``python -m goleft_tpu_torch depth`` on it in a
@@ -163,56 +170,259 @@ def shard_segments(rng):
     return w0, (s.astype(np.int32), e.astype(np.int32), keep), longs
 
 
-def kernel_phase(dev):
-    """Phase 3: kernel vs plain version at one full shard, both wires."""
+def cuda_graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call: ``calls`` calls captured in one CUDA graph,
+    replayed between two events (median of ``reps``), divided by
+    ``calls``. Unlike :func:`cuda_median_ms` the host's enqueue of each
+    call (allocations, argument marshalling) is not inside the window."""
     import torch
 
-    from goleft_tpu_torch.ops import depth_kernel as dk
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph
+    return float(np.median(times))
+
+
+def u16_wire(s, e, keep):
+    """The packed u16 wire of ``commands/depth.py`` (kept segments sorted,
+    bucket-padded with zero entries; no entries when there are no
+    segments) → (deltas, lens, base), or None for a segment of 65,536
+    bases or more."""
     from goleft_tpu_torch.ops.coverage import bucket_size, pack_segments_u16
+
+    order = np.argsort(s, kind="stable")
+    packed = pack_segments_u16(s[order], e[order], keep[order])
+    if packed is None:
+        return None
+    d, ln, base, n_ent = packed
+    b = bucket_size(n_ent) if n_ent else 0
+    dd = np.zeros(b, np.uint16)
+    ll = np.zeros(b, np.uint16)
+    dd[:n_ent], ll[:n_ent] = d, ln
+    return dd, ll, int(base)
+
+
+def depth_main_cases(dev, dk):
+    """The kernel phase's 10 Mb shard (seed 2024) for ``dk``, a
+    goleft_tpu_torch.ops.depth_kernel module: name → (kernel(dense),
+    plain(), wire entries, wire bytes an entry). "int32": every segment,
+    the ultra-long ones included, over the whole shard; "u16": the kept
+    segments under 65,536 bases, a region strictly inside the shard;
+    "u16_halo": the same plus one 65,535-base segment (the widest halo
+    of the tile kernel)."""
+    import torch
+
+    from goleft_tpu_torch.ops.coverage import bucket_size
 
     rng = np.random.default_rng(2024)
     w0, (s, e, keep), (ls, le) = shard_segments(rng)
-    # the int32 wire covers the whole shard (the main path's region); the
-    # u16 wire a region strictly inside it
     full = (w0, w0, w0 + SHARD, CAP, MIN_COV, MAX_MEAN, SHARD, WINDOW)
     inner = (w0, w0 + 130, w0 + SHARD - 100, CAP, MIN_COV, MAX_MEAN, SHARD,
              WINDOW)
-    out = {}
-    max_err = 0
 
-    # int32 wire: everything, the ultra-long segments included (they
-    # force this wire on the main path), bucket-padded with keep=False
+    # int32 wire: bucket-padded with keep=False
     s32 = np.concatenate([s, ls.astype(np.int32)])
     e32 = np.concatenate([e, le.astype(np.int32)])
     k32 = np.concatenate([keep, [True, True]])
-    b = bucket_size(len(s32))
-    pad = b - len(s32)
+    pad = bucket_size(len(s32)) - len(s32)
     s32 = np.concatenate([s32, np.zeros(pad, np.int32)])
     e32 = np.concatenate([e32, np.zeros(pad, np.int32)])
     k32 = np.concatenate([k32, np.zeros(pad, bool)])
     ts, te, tk = (torch.from_numpy(x).to(dev) for x in (s32, e32, k32))
+    cases = {"int32": (
+        lambda dense: dk.fused_depth(ts, te, tk, *full, dense=dense),
+        lambda: dk.fused_depth_plain(ts, te, tk, *full), len(s32), 9)}
 
-    # u16 wire: the kept segments under 65,536 bases, packed and padded
-    d, ln, base, n_ent = pack_segments_u16(s, e, keep)
-    bw = bucket_size(n_ent)
-    dd = np.zeros(bw, np.uint16)
-    ll = np.zeros(bw, np.uint16)
-    dd[:n_ent], ll[:n_ent] = d, ln
-    td, tl = (torch.from_numpy(x).to(dev) for x in (dd, ll))
-    assert (dd[:n_ent] == 0xFFFF).any() and (ll[:n_ent] == 0).any(), \
-        "the u16 case must hold gap fillers"
+    halo_s = w0 + 4_000_000
+    for name, (ss, ee) in (
+            ("u16", (s, e)),
+            ("u16_halo", (np.append(s, np.int32(halo_s)),
+                          np.append(e, np.int32(halo_s + 0xFFFF))))):
+        kk = np.append(keep, True) if len(ss) > len(s) else keep
+        dd, ll, base = u16_wire(ss, ee, kk)
+        assert (dd == 0xFFFF).any() and (ll == 0).any(), \
+            "the u16 case must hold gap fillers"
+        td, tl = (torch.from_numpy(x).to(dev) for x in (dd, ll))
+        cases[name] = (
+            lambda dense, td=td, tl=tl, base=base: dk.fused_depth_wire(
+                td, tl, base, *inner, dense=dense),
+            lambda td=td, tl=tl, base=base: dk.fused_depth_wire_plain(
+                td, tl, base, *inner), len(dd), 4)
+    return cases
 
-    cases = {
-        "int32": (lambda dense: dk.fused_depth(ts, te, tk, *full,
-                                               dense=dense),
-                  lambda: dk.fused_depth_plain(ts, te, tk, *full),
-                  b, 9),
-        "u16": (lambda dense: dk.fused_depth_wire(td, tl, int(base), *inner,
-                                                  dense=dense),
-                lambda: dk.fused_depth_wire_plain(td, tl, int(base),
-                                                  *inner),
-                bw, 4),
-    }
+
+def _edge_random(rng, n, lo, hi, max_len=400):
+    s = np.sort(rng.integers(lo, hi, n)).astype(np.int32)
+    e = (s + rng.integers(0, max_len, n)).astype(np.int32)
+    return s, e, rng.random(n) < 0.9
+
+
+def _edge_halo(rng):
+    s, e, k = _edge_random(rng, 20_000, -300, 100_300)
+    return (np.append(s, np.int32(5_000)), np.append(e, np.int32(70_535)),
+            np.append(k, True), (0, 0, 100_000, CAP, MIN_COV, 40, 100_000,
+                                 WINDOW))
+
+
+def _edge_gap(rng):
+    s, e, k = _edge_random(rng, 6_000, 0, 300_000)
+    gap = (s >= 20_000) & (s < 220_000)
+    s, e, k = s[~gap], e[~gap], k[~gap]
+    return s, e, k, (0, 0, 300_000, CAP, MIN_COV, 40, 300_000, WINDOW)
+
+
+def _edge_one_tile(rng):
+    # 3,000 segments inside the tile [8,000, 12,000), all covering
+    # [9,000, 11,000): the depth passes the cap of 2,600
+    s = rng.integers(8_000, 9_000, 3_000).astype(np.int32)
+    e = rng.integers(11_000, 12_000, 3_000).astype(np.int32)
+    return s, e, np.ones(3_000, bool), (0, 0, 40_000, CAP, MIN_COV,
+                                        MAX_MEAN, 40_000, WINDOW)
+
+
+def _edge_empty(rng):
+    z = np.zeros(0, np.int32)
+    return z, z, np.zeros(0, bool), (0, 0, 40_000, CAP, MIN_COV, 40,
+                                     40_000, WINDOW)
+
+
+def _edge_inner(rng):
+    w0 = 30_000_000
+    s, e, k = _edge_random(rng, 8_000, w0 - 500, w0 + 40_500)
+    return s, e, k, (w0, w0 + 130, w0 + 40_000 - 100, 60, MIN_COV, 40,
+                     40_000, WINDOW)
+
+
+def _edge_ragged(rng):
+    s, e, k = _edge_random(rng, 2_000, -100, 10_350)
+    return s, e, k, (0, 0, 10_250, 60, MIN_COV, 40, 10_250, WINDOW)
+
+
+def _edge_window(w):
+    def build(rng):
+        length = w * (20_000 // w)
+        s, e, k = _edge_random(rng, 3_000, -100, length + 100)
+        return s, e, k, (0, 5, length - 3, 60, MIN_COV, 40, length, w)
+    return build
+
+
+def _edge_wide_window(rng):
+    # DepthEngine's single window when window >= max_span (300,000 bp)
+    s, e, k = _edge_random(rng, 5_000, 0, 300_000)
+    return s, e, k, (0, 130, 299_930, 60, MIN_COV, 5, 300_032, 300_032)
+
+
+def _edge_big_sums(rng):
+    # 300-deep everywhere: a window sums 19,660,800 > 2**24
+    length = 2 * 65_536
+    s = np.arange(0, length, 60_000, dtype=np.int32).repeat(300)
+    e = np.minimum(s + 0xFFFF, length).astype(np.int32)
+    return s, e, np.ones(len(s), bool), (0, 0, length, CAP, MIN_COV,
+                                         MAX_MEAN, length, 65_536)
+
+
+#: the depth kernel's edge cases: name → builder(rng) → (seg_start,
+#: seg_end, keep, (w0, rs, re, cap, min_cov, max_mean, length, window));
+#: tests/test_torch_cuda.py runs them on the card and
+#: tests/test_torch_depth_pipeline.py against the JAX package
+DEPTH_EDGES = {
+    "halo_65535": _edge_halo,
+    "gap_200kb": _edge_gap,
+    "one_tile_to_cap": _edge_one_tile,
+    "empty": _edge_empty,
+    "inner_region": _edge_inner,
+    "ragged_length": _edge_ragged,
+    "window_7": _edge_window(7),
+    "window_251": _edge_window(251),
+    "window_250": _edge_window(250),
+    "window_wider_than_tile": _edge_wide_window,
+    "sums_above_2e24": _edge_big_sums,
+}
+
+
+def depth_edge_case(name: str):
+    """One edge case of :data:`DEPTH_EDGES` (its own seed) → (case, the
+    u16 wire or None)."""
+    seed = sorted(DEPTH_EDGES).index(name) + 70
+    case = DEPTH_EDGES[name](np.random.default_rng(seed))
+    return case, u16_wire(*case[:3])
+
+
+def depth_edges_on_card(dev, dk) -> int:
+    """Every edge case on both wires (the u16 wire where it can carry
+    the segments), dense outputs, bitwise against the plain version.
+    Returns the number of kernel calls checked."""
+    import torch
+
+    checked = 0
+    for name in DEPTH_EDGES:
+        (s, e, keep, args), wire = depth_edge_case(name)
+        runs = [("int32", [torch.from_numpy(x).to(dev) for x in (s, e,
+                                                                 keep)],
+                 dk.fused_depth, dk.fused_depth_plain)]
+        if wire is not None:
+            dd, ll, base = wire
+            runs.append(("u16", [torch.from_numpy(dd).to(dev),
+                                 torch.from_numpy(ll).to(dev), base],
+                         dk.fused_depth_wire, dk.fused_depth_wire_plain))
+        for wname, t, kern, plain in runs:
+            got = kern(*t, *args, dense=True)
+            want = plain(*t, *args)
+            torch.cuda.synchronize()
+            for nm, g, w in zip(("sums", "packed", "cls", "depth"), got,
+                                want):
+                if g.dtype != w.dtype or g.shape != w.shape \
+                        or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"depth kernel edge case {name} ({wname} wire): "
+                        f"{nm} differs from the plain version")
+            checked += 1
+    return checked
+
+
+def depth_scratch_bytes(dev, kern) -> int:
+    """Bytes a ``dense=False`` call allocates on the card beyond what is
+    already there (its inputs): workspace and outputs, at their peak."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    out = kern(False)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    del out
+    return int(peak)
+
+
+def kernel_phase(dev):
+    """Phase 3: kernel vs plain version at one full shard, both wires,
+    and the edge cases."""
+    import torch
+
+    from goleft_tpu_torch.ops import depth_kernel as dk
+
+    out = {}
+    max_err = 0
+    cases = depth_main_cases(dev, dk)
     for wire, (kern, plain, n_in, bytes_per) in cases.items():
         got = kern(True)
         want = plain()
@@ -231,22 +441,35 @@ def kernel_phase(dev):
         assert int(got[3].max()) == CAP, "the hotspot must reach the cap"
         assert int((got[2] == 3).sum()) > 0, "class 3 must occur"
         ms = cuda_median_ms(lambda: kern(False))
+        device_ms = cuda_graph_ms(lambda: kern(False))
         plain_ms = cuda_median_ms(plain)
+        scratch = depth_scratch_bytes(dev, kern)
         n_win = SHARD // WINDOW
         bytes_moved = n_in * bytes_per + 4 * n_win + (SHARD + 3) // 4
         ops = 8 * SHARD + 10 * n_in
         t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
         t_ops = ops / INT_OPS_PER_S * 1e3
         out[wire] = {
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": bytes_moved, "segments": n_in,
+            "scratch_bytes": scratch,
         }
         log(f"depth kernel {wire} wire: bitwise equal to the plain version "
             f"(depth, sums, classes, packed); {n_in} entries, median "
-            f"{ms:.4f} ms/shard kernel, {plain_ms:.4f} ms plain, bound "
-            f"{out[wire]['bound_ms']:.4f} ms ({out[wire]['bound_by']})")
+            f"{ms:.4f} ms/shard by events around a call, {device_ms:.4f} "
+            f"ms device time (CUDA graph of 20 calls), {plain_ms:.4f} ms "
+            f"plain, bound {out[wire]['bound_ms']:.4f} ms "
+            f"({out[wire]['bound_by']}); a dense=False call allocates "
+            f"{scratch} bytes (workspace + outputs)")
+    # the u16 wire must not allocate a per-base int32 buffer
+    for wire in ("u16", "u16_halo"):
+        assert out[wire]["scratch_bytes"] < 4 * SHARD, out[wire]
+    out["edge_calls"] = depth_edges_on_card(dev, dk)
+    log(f"depth kernel edge cases: {len(DEPTH_EDGES)} cases, "
+        f"{out['edge_calls']} kernel calls bitwise equal to the plain "
+        f"version ({', '.join(DEPTH_EDGES)})")
     out["max_abs_err"] = max_err
     return out
 
@@ -1568,7 +1791,9 @@ def main(argv=None) -> int:
                      max_abs_err=kres["max_abs_err"],
                      ms=main_wire["ms"], plain_ms=main_wire["plain_ms"],
                      bound_ms=main_wire["bound_ms"],
-                     bound_by=main_wire["bound_by"])
+                     bound_by=main_wire["bound_by"],
+                     device_ms=main_wire["device_ms"],
+                     scratch_bytes=main_wire["scratch_bytes"])
         results["pairhmm_kernel"] = pres = pairhmm_kernel_phase(dev)
         results["pairhmm_e2e"] = pe2e = pairhmm_e2e_phase(root, workdir)
         f32 = pres["float32"]  # the main path's instantiation

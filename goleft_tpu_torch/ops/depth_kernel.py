@@ -4,8 +4,9 @@
 The counterpart of the JAX package's ops/pallas_coverage.py::pallas_depth,
 extended to the whole device stage of ops/depth_pipeline.py: segment
 endpoints in; window sums (f32) and 2-bit packed classes out, optionally
-the dense capped depth and classes too. See the source's header for the
-design.
+the dense capped depth and classes too. On the card a shard is one
+memset of the workspace's head and two launches; see the source's
+header for the design.
 
 A wrapper takes the plain version only for tensors on the CPU. For CUDA
 tensors it launches the kernel or raises; nothing falls back. The kernel
@@ -17,6 +18,8 @@ build is one short nvcc call (chip_smoke.py prints its seconds).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 import threading
 
 import numpy as np
@@ -26,7 +29,8 @@ from ..device import KernelFault
 from . import _nvcc
 from .coverage import callable_classes
 
-TILE = 1024  # positions per scan tile (csrc/depth_kernel.cu TILE)
+TILE = 1024  # positions per tile of the TPU kernel's host tiler
+TILE_MAX = 4096  # positions per tile of launch B (csrc TILE_MAX)
 
 NVCC_FLAGS = list(_nvcc.BASE_FLAGS)
 
@@ -48,9 +52,12 @@ def load_library() -> ctypes.CDLL:
         lib, BUILD_LOG = _nvcc.build("depth_kernel.cu", NVCC_FLAGS,
                                      "depth kernel")
         p, i32, lng = ctypes.c_void_p, ctypes.c_int32, ctypes.c_long
+        lib.depth_workspace_bytes.argtypes = [
+            ctypes.c_int, lng, lng, lng, lng, ctypes.POINTER(lng)]
+        lib.depth_workspace_bytes.restype = lng
         lib.depth_pipeline_launch.argtypes = [
             ctypes.c_int, p, p, p, lng, i32, i32, i32, i32, i32, i32, i32,
-            lng, lng, p, p, p, p, p, p, p, p, p, p]
+            lng, lng, lng, p, p, p, p, p, p]
         lib.depth_pipeline_launch.restype = ctypes.c_int
         lib.depth_kernel_error_string.argtypes = [ctypes.c_int]
         lib.depth_kernel_error_string.restype = ctypes.c_char_p
@@ -135,9 +142,28 @@ def _check(t: torch.Tensor, dtype, name: str, n: int | None = None):
         raise ValueError(f"{name}: expected {n} entries, got {t.shape[0]}")
 
 
+def tile_positions(window: int) -> int:
+    """Positions of one tile of the kernel's launch B: the largest
+    multiple of lcm(window, 16) up to TILE_MAX, so that a tile holds
+    whole windows and whole 16-position thread groups; TILE_MAX when
+    lcm(window, 16) is wider (such windows are summed across tiles)."""
+    step = math.lcm(window, 16)
+    return TILE_MAX // step * step if step <= TILE_MAX else TILE_MAX
+
+
+@functools.lru_cache(maxsize=64)
+def _workspace(wire: int, n: int, length: int, window: int):
+    """(tile, workspace bytes, bytes to zero) of one launch."""
+    tile = tile_positions(window)
+    zeroed = ctypes.c_long()
+    total = load_library().depth_workspace_bytes(
+        wire, n, length, window, tile, ctypes.byref(zeroed))
+    return tile, total, zeroed.value
+
+
 def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
             max_mean, length: int, window: int, dense: bool):
-    if length < 1 or length % window or length >= 2**31 - TILE:
+    if length < 1 or length % window or length >= 2**31 - TILE_MAX:
         raise ValueError(f"depth kernel: bad length {length} / window "
                          f"{window}")
     dev = a.device
@@ -145,17 +171,12 @@ def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
         raise ValueError("depth kernel: inputs on different devices")
     n = a.shape[0]
     lib = load_library()
-    n_tiles = (length + TILE - 1) // TILE
-    n_win = length // window
-    i32 = dict(dtype=torch.int32, device=dev)
-    delta = torch.zeros(n_tiles * TILE + 4, **i32)
-    tile_carry = torch.empty(n_tiles, **i32)
-    wire_scan = torch.empty(n if wire else 0, **i32)
-    wire_carry = torch.empty((n + TILE - 1) // TILE if wire else 0, **i32)
-    wsum = torch.zeros(n_win, dtype=torch.int64, device=dev)
-    sums = torch.empty(n_win, dtype=torch.float32, device=dev)
+    tile, total, zeroed = _workspace(wire, n, length, window)
+    ws = torch.empty(total, dtype=torch.uint8, device=dev)
+    sums = torch.empty(length // window, dtype=torch.float32, device=dev)
     packed = torch.empty((length + 3) // 4, dtype=torch.uint8, device=dev)
-    depth = torch.empty(length, **i32) if dense else None
+    depth = torch.empty(length, dtype=torch.int32, device=dev) if dense \
+        else None
     cls = torch.empty(length, dtype=torch.int8, device=dev) if dense \
         else None
 
@@ -163,16 +184,16 @@ def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
         return None if t is None or t.numel() == 0 else t.data_ptr()
 
     with torch.cuda.device(dev):
+        ws[:zeroed].zero_()  # the one memset
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.depth_pipeline_launch(
             wire, ptr(a), ptr(b), ptr(keep), n, int(base), int(w0),
             int(rs), int(re), int(cap), int(min_cov), int(max_mean),
-            length, window, ptr(delta), ptr(tile_carry), ptr(wire_scan),
-            ptr(wire_carry), ptr(wsum), ptr(sums), ptr(packed), ptr(depth),
-            ptr(cls), stream)
+            length, window, tile, ptr(ws), ptr(sums), ptr(packed),
+            ptr(depth), ptr(cls), stream)
     if rc != 0:
         raise KernelFault("depth kernel launch failed: "
-                           + lib.depth_kernel_error_string(rc).decode())
+                          + lib.depth_kernel_error_string(rc).decode())
     with _lock:
         LAUNCHES["depth"] += 1
     return sums, packed, cls, depth

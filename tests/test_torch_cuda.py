@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import DEPTH_EDGES, depth_edge_case
 from goleft_tpu_torch.ops import depth_kernel as dk
 from goleft_tpu_torch.ops.coverage import bucket_size, pack_segments_u16
 
@@ -48,6 +49,53 @@ def test_kernel_equals_plain_on_card():
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(DEPTH_EDGES))
+def test_depth_kernel_edge_cases_on_card(name):
+    """chip_smoke.py's DEPTH_EDGES (the widest halo, a gap bridged by
+    u16 fillers, one tile past the cap, no segments, an inner region, a
+    ragged length, windows of 7, 251 and 250, one window wider than a
+    tile, window sums above 2**24) on both wires where the wire can
+    carry them, dense outputs bitwise against the plain version; one
+    counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    (s, e, keep, args), wire = depth_edge_case(name)
+    dev = torch.device("cuda")
+    runs = [(dk.fused_depth, dk.fused_depth_plain,
+             [torch.from_numpy(x).to(dev) for x in (s, e, keep)])]
+    if wire is not None:
+        dd, ll, base = wire
+        runs.append((dk.fused_depth_wire, dk.fused_depth_wire_plain,
+                     [torch.from_numpy(dd).to(dev),
+                      torch.from_numpy(ll).to(dev), base]))
+    for kern, plain, t in runs:
+        before = dk.LAUNCHES["depth"]
+        got = kern(*t, *args, dense=True)
+        want = plain(*t, *args)
+        torch.cuda.synchronize()
+        assert dk.LAUNCHES["depth"] == before + 1
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w)
+        sums, packed, _, _ = kern(*t, *args)
+        assert torch.equal(sums, want[0]) and torch.equal(packed, want[1])
+
+
+@pytest.mark.cuda
+def test_depth_u16_call_allocates_no_per_base_buffer():
+    """A dense=False call on the u16 wire at chip_smoke.py's 10 Mb shard
+    allocates less than one int32 a base (workspace and outputs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import SHARD, depth_main_cases, depth_scratch_bytes
+
+    dev = torch.device("cuda")
+    kern = depth_main_cases(dev, dk)["u16"][0]
+    kern(False)
+    assert depth_scratch_bytes(dev, kern) < 4 * SHARD
 
 
 def _pairhmm_bucket(rng, b, read_len, hap_len, dtype, r_pad=None):

@@ -97,6 +97,18 @@ def test_bucket_endpoints_capacity():
         dk.bucket_endpoints(s, e, np.ones(300, bool), dk.TILE, p_cap=128)
 
 
+@pytest.mark.parametrize("window,tile", [
+    (250, 4000), (500, 4000), (7, 4032), (251, 4016), (13, 3952),
+    (1, 4096), (2049, 4096), (7168, 4096), (300_032, 4096)])
+def test_tile_geometry(window, tile):
+    """Launch B's tile: a multiple of 16 positions up to 4,096 that holds
+    whole windows wherever lcm(window, 16) fits, else 4,096 (windows
+    then cross tiles)."""
+    got = dk.tile_positions(window)
+    assert got == tile and got % 16 == 0 and got <= dk.TILE_MAX
+    assert (got % window == 0) == (np.lcm(window, 16) <= dk.TILE_MAX)
+
+
 def test_wrapper_checks_types():
     s = torch.zeros(4, dtype=torch.int64)
     with pytest.raises(TypeError):

@@ -18,7 +18,9 @@ from goleft_tpu.commands.depth import DepthEngine as JaxEngine
 from goleft_tpu.ops import depth_pipeline as jp
 from goleft_tpu.ops.coverage import bucket_size as jax_bucket_size
 from goleft_tpu.ops.coverage import pack_segments_u16 as jax_pack
+from chip_smoke import DEPTH_EDGES, depth_edge_case
 from goleft_tpu_torch.commands.depth import DepthEngine
+from goleft_tpu_torch.ops import depth_kernel as dk
 from goleft_tpu_torch.ops import depth_pipeline as tp
 from goleft_tpu_torch.ops.coverage import bucket_size, pack_segments_u16
 
@@ -106,6 +108,38 @@ def test_u16_wire_matches_jax(case):
         jp.shard_depth_pipeline_packed_cls_packed(dd, ll, base, *sc, **kw))
     _assert_same(tp.shard_depth_pipeline_packed(*t, int(base), *ints, **kw),
                  jp.shard_depth_pipeline_packed(dd, ll, base, *sc, **kw))
+
+
+@pytest.mark.parametrize("wire", ["int32", "u16"])
+@pytest.mark.parametrize("name", sorted(DEPTH_EDGES))
+def test_edge_cases_match_jax(name, wire):
+    """chip_smoke.py's depth kernel edge cases (the ones the card holds
+    the kernel to, bitwise against this plain version) through the
+    port's public wrappers on the CPU and the JAX package's pipeline:
+    window sums, dense classes, dense depth and packed classes. The u16
+    wire runs where it can carry the segments (all of them here)."""
+    (s, e, keep, args), packed = depth_edge_case(name)
+    *sc, L, W = args
+    sc = tuple(np.int32(x) for x in sc)
+    kw = dict(length=L, window=W)
+    exact = W * args[3] < 2**24
+    if wire == "int32":
+        t = [torch.from_numpy(x) for x in (s, e, keep)]
+        got = dk.fused_depth(*t, *args, dense=True)
+        sums, cls, depth = jp.shard_depth_pipeline(s, e, keep, *sc, **kw)
+        want_packed = jp.shard_depth_pipeline_cls_packed(s, e, keep, *sc,
+                                                         **kw)[1]
+    else:
+        assert packed is not None
+        dd, ll, base = packed
+        got = dk.fused_depth_wire(torch.from_numpy(dd), torch.from_numpy(ll),
+                                  base, *args, dense=True)
+        sums, cls, depth = jp.shard_depth_pipeline_packed(
+            dd, ll, np.int32(base), *sc, **kw)
+        want_packed = jp.shard_depth_pipeline_packed_cls_packed(
+            dd, ll, np.int32(base), *sc, **kw)[1]
+    _assert_same((got[0], got[2], got[3], got[1]),
+                 (sums, cls, depth, want_packed), exact_sums=exact)
 
 
 def test_sums_above_float32_exact_range():
