@@ -3,7 +3,7 @@
 
 Run from the root of a checkout, on a machine with one CUDA card:
 
-    python3 chip_smoke.py [--out FILE]
+    python3 chip_smoke.py [--out FILE] [--trace-dir DIR]
 
 1. prints the card's provenance (torch / CUDA versions, name, power limit);
 2. builds the hand-written kernels (csrc/depth_kernel.cu,
@@ -82,7 +82,20 @@ Run from the root of a checkout, on a machine with one CUDA card:
    files (per shard, the containers it decodes; per container, its
    launch groups), whose split it prints; prints the seconds, import
    seconds, stage seconds and samples x contig bp per second;
-10. prints the kernels line, the card's ``nvidia-smi`` name and power
+10. the flags: ``depth --cache DIR`` twice on phase 4's BAM (3 depth
+   launches, then 0 with a cache hit per shard; both BEDs byte-identical
+   to the oracle each time), ``depth --profile DIR`` (torch.profiler's
+   Chrome trace holds each shard's ``wire_starts`` and ``depth_tiles``),
+   ``cohortdepth --decode-device`` and ``pairhmm`` under ``--trace-out``
+   (output bytes unchanged; one ``run.<command>`` root, every span
+   parented, one fenced ``device.<kernel>`` span per launch, the
+   manifest's trace id; prints the fenced-kernel share beside the
+   untraced command's seconds), and ``cohortdepth --checkpoint-dir``
+   on a four-region BED killed by ``--inject-faults
+   shard:after=2:kill`` (SIGKILL), resumed (the oracle's bytes, fewer
+   rans launches than an uninterrupted run) and resumed again over the
+   complete store (0 rans launches, the same bytes);
+11. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -554,6 +567,7 @@ def import_breakdown(root: str, env: dict) -> dict:
 
 
 def e2e_phase(root: str, workdir: str):
+    """→ (results, (bam, fasta, the oracle's depth BED, callable BED))."""
     rng = np.random.default_rng(7)
     t0 = time.perf_counter()
     bam, fa, reads = fabricate(workdir, rng)
@@ -580,14 +594,8 @@ def e2e_phase(root: str, workdir: str):
     for path, want in ((prefix + ".depth.bed", want_d),
                        (prefix + ".callable.bed", want_c)):
         with open(path) as fh:
-            got = fh.read()
-        if got != want:
-            i = next((k for k, (a, b) in enumerate(zip(got, want))
-                      if a != b), min(len(got), len(want)))
-            raise AssertionError(
-                f"{os.path.basename(path)} differs from the numpy oracle "
-                f"at byte {i}: got {got[i - 80:i + 80]!r} want "
-                f"{want[i - 80:i + 80]!r}")
+            _same_bytes(f"{os.path.basename(path)} (against the numpy "
+                        "oracle)", fh.read(), want)
     log(f"depth CLI: {E2E_LEN} bp, {E2E_READS} reads; process wall "
         f"{wall:.3f} s = {E2E_LEN / wall / 1e9:.4f} Gbases/s, command "
         f"{cmd_s:.3f} s = {E2E_LEN / cmd_s / 1e9:.4f} Gbases/s end to end; "
@@ -609,7 +617,7 @@ def e2e_phase(root: str, workdir: str):
             "gbases_per_s": E2E_LEN / cmd_s / 1e9,
             "gbases_per_s_process": E2E_LEN / wall / 1e9,
             "launches": launches, "stage_seconds": stages,
-            "backend": rep["backend"]}
+            "backend": rep["backend"]}, (bam, fa, want_d, want_c)
 
 
 # ---- pair-HMM phases ---------------------------------------------------
@@ -1210,7 +1218,9 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
             "pairs_per_s": n_pairs / cmd_s, "gcups": cells / cmd_s / 1e9,
             "unattributed_s": rest,
             "launches": launches, "stage_seconds": stages,
-            "oracle_pl_max_diff": worst_pl}
+            "oracle_pl_max_diff": worst_pl,
+            "fixture": {"windows": wpath, "candidates": cpath,
+                        "table": table}}
 
 # ---- rANS-Nx16 and cohortdepth phases --------------------------------
 
@@ -1686,13 +1696,8 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
         if r.returncode != 0:
             raise AssertionError(f"cohortdepth ({name}) failed "
                                  f"({r.returncode}):\n{r.stderr[-4000:]}")
-        if r.stdout != want:
-            i = next((k for k, (a, b) in enumerate(zip(r.stdout, want))
-                      if a != b), min(len(r.stdout), len(want)))
-            raise AssertionError(
-                f"cohortdepth ({name}) matrix differs from the oracle at "
-                f"byte {i}: got {r.stdout[i - 80:i + 80]!r} want "
-                f"{want[i - 80:i + 80]!r}")
+        _same_bytes(f"cohortdepth ({name}) matrix (against the oracle)",
+                    r.stdout, want)
         rep, cmd_s, stages = read_manifest(report, "cohortdepth")
         c = rep["metrics"]["counters"]
         launches = rep["kernel_launches"]
@@ -1724,6 +1729,242 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
     return runs
 
 
+# ---- flags phase: cache, profile, traces, kill and resume -------------
+
+#: regions of the kill-and-resume runs: the cohort's contig cut in four
+FLAG_REGIONS = 4
+FLAG_KILL = "shard:after=2:kill"
+
+
+def _same_bytes(what: str, got: str, want: str) -> None:
+    if got != want:
+        i = next((k for k, (a, b) in enumerate(zip(got, want)) if a != b),
+                 min(len(got), len(want)))
+        lo = max(i - 80, 0)
+        raise AssertionError(f"{what} differs at byte {i}: got "
+                             f"{got[lo:i + 80]!r} want "
+                             f"{want[lo:i + 80]!r}")
+
+
+def load_trace(path: str) -> dict:
+    """A ``--trace-out`` file: Chrome trace-event JSON with exactly one
+    ``run.<command>`` root, every other span's parent in the file, the
+    device spans fenced and of platform gpu → {"doc", "root", "spans"
+    (the ph X events), "device" (the device.* events)}."""
+    with open(path) as fh:
+        doc = json.load(fh)
+    assert isinstance(doc.get("traceEvents"), list), path
+    spans = [e for e in doc["traceEvents"] if e.get("ph") == "X"]
+    for e in spans:
+        assert {"name", "ts", "dur", "pid", "tid", "args"} <= set(e), e
+    roots = [e for e in spans if e["name"].startswith("run.")]
+    assert len(roots) == 1, [e["name"] for e in roots]
+    root = roots[0]
+    ids = {e["args"]["span_id"] for e in spans}
+    orphans = [e["name"] for e in spans if e is not root
+               and e["args"].get("parent_id") not in ids]
+    assert not orphans, f"spans without a parent in the trace: {orphans[:5]}"
+    assert all(e["args"]["trace_id"] == root["args"]["trace_id"]
+               for e in spans)
+    device = [e for e in spans if e["name"].startswith("device.")]
+    for e in device:
+        assert e["cat"] == "device" and e["args"]["fenced"] is True, e
+        assert e["args"]["platform"] == "gpu", e
+    return {"doc": doc, "root": root, "spans": spans, "device": device}
+
+
+def fenced_kernel_share(tr: dict) -> float:
+    """The union of the fenced device.* intervals over the run span: an
+    upper bound of the kernels' share of the run (a fenced span also
+    holds the enqueue and the wait), not of the card's busy share: card
+    work outside the launches (copies, rANS expansions) is in no span."""
+    iv = sorted((e["ts"], e["ts"] + e["dur"]) for e in tr["device"])
+    busy, end = 0.0, -1.0
+    for a, b in iv:
+        if b <= end:
+            continue
+        busy += b - max(a, end)
+        end = b
+    return busy / tr["root"]["dur"]
+
+
+def profile_kernels(trace_dir: str) -> dict:
+    """{kernel event name: count} of the CUDA kernel events in a
+    ``depth --profile`` directory's Chrome trace."""
+    from collections import Counter
+
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    assert files, f"no Chrome trace in {trace_dir}"
+    with open(os.path.join(trace_dir, files[0])) as fh:
+        doc = json.load(fh)
+    return dict(Counter(e["name"] for e in doc["traceEvents"]
+                        if e.get("cat") == "kernel"))
+
+
+def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
+                crams, fai, want: str, co_plan_launches: int,
+                untraced: dict, keep_dir: str | None) -> dict:
+    """The global and per-command flags through fresh processes of
+    ``python -m goleft_tpu_torch`` on the fixtures of the phases before:
+    ``depth --cache`` twice and ``--profile``; ``cohortdepth
+    --decode-device`` and ``pairhmm`` under ``--trace-out``; a
+    checkpointed cohortdepth killed by ``--inject-faults``, resumed, and
+    resumed again over the complete store."""
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    out: dict = {}
+    bam, fa, want_d, want_c = depth_fixture
+    shards = -(-E2E_LEN // SHARD)
+
+    # depth --cache, twice: the second run replays every shard
+    cache = os.path.join(workdir, "depth_cache")
+    for run in ("cold", "warm"):
+        prefix = os.path.join(workdir, f"cache_{run}")
+        report = os.path.join(workdir, f"cache_{run}.json")
+        r, wall = _run_cli(root, ["--metrics-out", report, "depth",
+                                  "--cache", cache, "--prefix", prefix,
+                                  "-r", fa, "-w", str(WINDOW), "-m",
+                                  str(MAX_MEAN), bam], env)
+        assert r.returncode == 0, r.stderr[-4000:]
+        for path, w in ((prefix + ".depth.bed", want_d),
+                        (prefix + ".callable.bed", want_c)):
+            with open(path) as fh:
+                _same_bytes(f"depth --cache ({run}) "
+                            f"{os.path.basename(path)}", fh.read(), w)
+        rep, cmd_s, _ = read_manifest(report, "depth")
+        c = rep["metrics"]["counters"]
+        launches = rep["kernel_launches"]["depth"]
+        hits = c.get("result_cache.hits_total", 0)
+        if run == "cold":
+            assert launches == shards and hits == 0, (launches, c)
+        else:
+            assert launches == 0 and hits == shards, (launches, c)
+        out[f"cache_{run}"] = {"command_s": cmd_s, "launches": launches,
+                               "hits": hits}
+        log(f"depth --cache ({run}): both BEDs byte-identical to the "
+            f"oracle; depth launches {launches}, cache hits {hits} of "
+            f"{shards} shards; command {cmd_s:.3f} s")
+
+    # depth --profile: torch.profiler's trace holds the depth kernels
+    pdir = os.path.join(workdir, "depth_profile")
+    r, _ = _run_cli(root, ["depth", "--profile", pdir, "--prefix",
+                           os.path.join(workdir, "prof"), "-r", fa, "-w",
+                           str(WINDOW), "-m", str(MAX_MEAN), bam], env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    kern = profile_kernels(pdir)
+    for name in ("wire_starts", "depth_tiles"):
+        n = sum(v for k, v in kern.items() if name in k)
+        assert n == shards, (name, kern)
+    out["profile_kernels"] = kern
+    log(f"depth --profile: CUDA kernel events {kern}")
+
+    # cohortdepth --decode-device --trace-out: one device.rans span a launch
+    trace = os.path.join(workdir, "co_trace.json")
+    report = os.path.join(workdir, "co_trace_report.json")
+    r, wall = _run_cli(root, ["--trace-out", trace, "--metrics-out", report,
+                              "cohortdepth", "--fai", fai, "-w",
+                              str(CO_WINDOW), "--decode-device", *crams],
+                       env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    _same_bytes("cohortdepth --trace-out matrix", r.stdout, want)
+    rep, cmd_s, _ = read_manifest(report, "cohortdepth")
+    tr = load_trace(trace)
+    assert tr["root"]["name"] == "run.cohortdepth"
+    assert rep["trace_id"] == tr["root"]["args"]["trace_id"]
+    n_rans = sum(e["name"] == "device.rans" for e in tr["device"])
+    assert n_rans == co_plan_launches == rep["kernel_launches"]["rans"], \
+        (n_rans, co_plan_launches, rep["kernel_launches"])
+    share = fenced_kernel_share(tr)
+    out["cohort_trace"] = {"command_s": cmd_s,
+                           "untraced_command_s": untraced["cohort"],
+                           "device_spans": n_rans, "fenced_kernel_share": share,
+                           "spans": len(tr["spans"])}
+    log(f"cohortdepth --decode-device --trace-out: matrix byte-identical; "
+        f"{len(tr['spans'])} spans, {n_rans} fenced device.rans spans = "
+        f"the launch plan; fenced-kernel share (union of fenced device "
+        f"spans over run.cohortdepth, an upper bound of kernel time "
+        f"only) {share:.4f}; "
+        f"command {cmd_s:.3f} s traced against {untraced['cohort']:.3f} s "
+        f"without fences (phase 9's hybrid run)")
+    if keep_dir:
+        shutil.copy(trace, os.path.join(keep_dir, "cohortdepth_trace.json"))
+
+    # pairhmm --trace-out: one device.pairhmm span per length bucket
+    fx = pairhmm_run["fixture"]
+    trace = os.path.join(workdir, "ph_trace.json")
+    report = os.path.join(workdir, "ph_trace_report.json")
+    table = os.path.join(workdir, "ph_trace_table.tsv")
+    r, _ = _run_cli(root, ["--trace-out", trace, "--metrics-out", report,
+                           "pairhmm", "--candidates", fx["candidates"],
+                           "--out", table, fx["windows"]], env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with open(table) as fh, open(fx["table"]) as fw:
+        _same_bytes("pairhmm --trace-out table", fh.read(), fw.read())
+    rep, cmd_s, _ = read_manifest(report, "pairhmm")
+    tr = load_trace(trace)
+    assert rep["trace_id"] == tr["root"]["args"]["trace_id"]
+    n_ph = sum(e["name"] == "device.pairhmm" for e in tr["device"])
+    assert n_ph == rep["kernel_launches"]["pairhmm"] \
+        == pairhmm_run["launches"], (n_ph, rep["kernel_launches"])
+    share = fenced_kernel_share(tr)
+    out["pairhmm_trace"] = {"command_s": cmd_s,
+                            "untraced_command_s": untraced["pairhmm"],
+                            "device_spans": n_ph, "fenced_kernel_share": share}
+    log(f"pairhmm --trace-out: table byte-identical; {n_ph} fenced "
+        f"device.pairhmm spans = the launches; fenced-kernel share "
+        f"{share:.4f}; command {cmd_s:.3f} s traced against "
+        f"{untraced['pairhmm']:.3f} s without fences (phase 6)")
+    if keep_dir:
+        shutil.copy(trace, os.path.join(keep_dir, "pairhmm_trace.json"))
+
+    # kill and resume: a BED that cuts the contig into FLAG_REGIONS regions
+    bed = os.path.join(workdir, "co_regions.bed")
+    step = CO_LEN // FLAG_REGIONS
+    with open(bed, "w") as fh:
+        for lo in range(0, CO_LEN, step):
+            fh.write(f"chr1\t{lo}\t{min(lo + step, CO_LEN)}\n")
+    base = ["cohortdepth", "--fai", fai, "-w", str(CO_WINDOW), "-b", bed,
+            "--decode-device"]
+    ck = os.path.join(workdir, "co_ck")
+    runs = {}
+    for name, extra in (("uninterrupted", []),
+                        ("killed", ["--checkpoint-dir", ck,
+                                    "--inject-faults", FLAG_KILL]),
+                        ("resumed", ["--checkpoint-dir", ck, "--resume"]),
+                        ("complete", ["--checkpoint-dir", ck, "--resume"])):
+        report = os.path.join(workdir, f"co_{name}.json")
+        r, wall = _run_cli(root, ["--metrics-out", report, *base, *extra,
+                                  *crams], env)
+        if name == "killed":
+            assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+            with open(os.path.join(ck, "journal.jsonl")) as fh:
+                committed = sum(1 for _ in fh)
+            runs[name] = {"wall_s": wall, "committed": committed}
+            log(f"cohortdepth --checkpoint-dir --inject-faults {FLAG_KILL}: "
+                f"killed by SIGKILL after {committed} committed columns")
+            continue
+        assert r.returncode == 0, r.stderr[-4000:]
+        _same_bytes(f"cohortdepth -b ({name}) matrix", r.stdout, want)
+        rep, cmd_s, _ = read_manifest(report, "cohortdepth")
+        c = rep["metrics"]["counters"]
+        runs[name] = {"command_s": cmd_s,
+                      "rans": rep["kernel_launches"]["rans"],
+                      "resumed": c.get("checkpoint.shards_resumed_total", 0),
+                      "written": c.get("checkpoint.shards_written_total", 0)}
+        log(f"cohortdepth -b {FLAG_REGIONS} regions ({name}): matrix "
+            f"byte-identical to the oracle; rans launches "
+            f"{runs[name]['rans']}, columns resumed "
+            f"{runs[name]['resumed']}, written {runs[name]['written']}; "
+            f"command {cmd_s:.3f} s")
+    assert 0 < runs["killed"]["committed"] < FLAG_REGIONS * CO_SAMPLES
+    assert 0 < runs["resumed"]["rans"] < runs["uninterrupted"]["rans"], runs
+    assert runs["resumed"]["resumed"] == runs["killed"]["committed"], runs
+    assert runs["complete"]["rans"] == 0, runs
+    assert runs["complete"]["resumed"] == FLAG_REGIONS * CO_SAMPLES, runs
+    out["kill_resume"] = runs
+    return out
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
@@ -1742,7 +1983,11 @@ def build_kernels(mods) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--trace-dir", help="keep the flags phase's "
+                    "--trace-out files in this directory")
     args = ap.parse_args(argv)
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
     import torch
 
     if not torch.cuda.is_available():
@@ -1785,7 +2030,8 @@ def main(argv=None) -> int:
         results["kernel"] = kres = kernel_phase(dev)
         shutil.rmtree(workdir, ignore_errors=True)
         os.makedirs(workdir)
-        results["e2e"] = e2e = e2e_phase(root, workdir)
+        results["e2e"], depth_fixture = e2e_phase(root, workdir)
+        e2e = results["e2e"]
         main_wire = kres["u16"]  # the packed wire is the main path's
         depth.update(status="pass", launches=e2e["launches"],
                      max_abs_err=kres["max_abs_err"],
@@ -1813,6 +2059,11 @@ def main(argv=None) -> int:
         results["rans_kernel"] = rres = rans_kernel_phase(dev, crams)
         results["cohort_e2e"] = co = cohort_e2e_phase(root, workdir, crams,
                                                       fai, want)
+        results["flags"] = flags_phase(
+            root, workdir, depth_fixture, pe2e, crams, fai, want,
+            co["hybrid"]["launches"]["rans"],
+            {"cohort": co["hybrid"]["command_s"],
+             "pairhmm": pe2e["command_s"]}, args.trace_dir)
         o0 = rres["ORDER0"]  # the cohort's most common codec
         rans.update(status="pass", launches=co["hybrid"]["launches"]["rans"],
                     max_abs_err=rres["max_abs_err"], ms=o0["ms"],

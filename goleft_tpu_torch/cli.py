@@ -4,17 +4,35 @@ The counterpart of the JAX package's cli.py: a name → (help, main)
 table; unknown or missing subcommands print the sorted table. Subcommands
 register here as their slices of the port land.
 
-Global flag, valid before or after the subcommand name:
+Global flags, valid before or after the subcommand name (stripped here,
+so no command declares them), as the JAX package's cli.py has them:
 
+  --trace-out FILE    write the run's span timeline as Chrome trace-event
+                      JSON (loads in Perfetto): the ``run.<command>``
+                      root, the stages under it on every thread, and one
+                      fenced ``device.<kernel>`` span per kernel launch
+                      (--trace-out turns device events on; each fence
+                      waits on the launching thread's stream)
+  --log-level LEVEL   debug/info/warning/error on the goleft-tpu-torch.*
+                      logger tree
+  -v / -vv            shorthand for --log-level info / debug
+                      (``-v`` as the only argument prints the version)
+  --inject-faults S   install a deterministic fault schedule
+                      (resilience/faults.py grammar, also settable via
+                      GOLEFT_TPU_FAULTS), e.g. shard:after=3:kill
   --metrics-out FILE  write the run manifest at exit, the reference's
                       ``goleft-tpu.run-manifest/1.3`` (obs/manifest.py):
                       argv, env, backend (card provenance, platform),
                       spans (per-stage seconds and calls; the command's
                       own under ``run.<command>``), metrics (the
-                      counters of obs/), trace_id; and the port's own
-                      keys: command, exit_code, import_seconds (torch
-                      and the subcommand), kernel_launches and
-                      native_io (the native host decoder was loaded)
+                      counters of obs/), the run's trace_id; and the
+                      port's own keys: command, exit_code,
+                      import_seconds (torch and the subcommand),
+                      kernel_launches and native_io (the native host
+                      decoder was loaded)
+
+Every invocation runs under a run-scoped trace: the ``run.<command>``
+root span parents the pipeline's stages, whichever threads record them.
 """
 
 from __future__ import annotations
@@ -51,33 +69,69 @@ PROGS = {
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
 }
 
+_VALUE_FLAGS = {"--trace-out": "trace_out",
+                "--metrics-out": "metrics_out",
+                "--log-level": "log_level",
+                "--inject-faults": "inject_faults"}
+
+
+def _extract_global_flags(argv: list[str]):
+    """Strip the global flags from anywhere in argv → (options, the rest
+    of argv). Raises ValueError on a flag without its value, an unknown
+    level or a bad fault spec. ``-v``/``-vv`` count as verbosity here;
+    the caller has already taken ``-v`` alone as the version."""
+    opts = {"trace_out": None, "metrics_out": None, "log_level": None,
+            "inject_faults": None, "verbose": 0}
+    rest: list[str] = []
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+        key = _VALUE_FLAGS.get(a)
+        if key is not None:
+            if i + 1 >= len(argv):
+                raise ValueError(f"{a} needs a value")
+            opts[key] = argv[i + 1]
+            i += 2
+            continue
+        flag, eq, val = a.partition("=")
+        key = _VALUE_FLAGS.get(flag)
+        if key is not None and eq:
+            opts[key] = val
+        elif a == "-v":
+            opts["verbose"] += 1
+        elif a == "-vv":
+            opts["verbose"] += 2
+        else:
+            rest.append(a)
+        i += 1
+    if opts["log_level"] is not None:
+        from .obs.logging import parse_level
+
+        parse_level(opts["log_level"])
+    if opts["inject_faults"] is not None:
+        from .resilience.faults import parse_faults
+
+        parse_faults(opts["inject_faults"])
+    return opts, rest
+
 
 def usage() -> str:
     lines = [f"goleft-tpu-torch Version: {__version__}", ""]
     for name in sorted(PROGS):
         lines.append(f"{name:<11}: {PROGS[name][0]}")
-    lines += ["", "global flags (before or after the subcommand):",
-              "  --metrics-out FILE  JSON run manifest (provenance, "
-              "spans, counters, kernel launches)"]
+    lines += [
+        "",
+        "global flags (before or after the subcommand):",
+        "  --trace-out FILE    Perfetto/Chrome trace of the run's spans, "
+        "with fenced device spans",
+        "  --metrics-out FILE  JSON run manifest (provenance, spans, "
+        "counters, kernel launches)",
+        "  --log-level LEVEL   debug|info|warning|error",
+        "  -v / -vv            info / debug logging",
+        "  --inject-faults S   deterministic fault schedule (e.g. "
+        "shard:after=3:kill)",
+    ]
     return "\n".join(lines)
-
-
-def _extract_metrics_out(argv: list[str]):
-    out, rest, i = None, [], 0
-    while i < len(argv):
-        a = argv[i]
-        if a == "--metrics-out":
-            if i + 1 >= len(argv):
-                raise ValueError("--metrics-out needs a value")
-            out = argv[i + 1]
-            i += 2
-            continue
-        if a.startswith("--metrics-out="):
-            out = a.split("=", 1)[1]
-        else:
-            rest.append(a)
-        i += 1
-    return out, rest
 
 
 def _run_command(prog: str, argv: list[str]) -> int:
@@ -111,7 +165,7 @@ def _run_command(prog: str, argv: list[str]) -> int:
 
 
 def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
-                    seconds: float) -> None:
+                    seconds: float, trace_id: str | None) -> None:
     from .io import native
     from .obs.manifest import write_manifest
     from .ops import depth_kernel, pairhmm_kernel, rans_kernel
@@ -119,6 +173,7 @@ def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
     try:
         write_manifest(
             path, argv=[f"goleft-tpu-torch {prog}"] + argv,
+            trace_id=trace_id,
             spans={f"run.{prog}": {"seconds": seconds, "calls": 1}},
             extra={"command": prog, "exit_code": rc,
                    "import_seconds": sum(IMPORT_SECONDS.values()),
@@ -137,7 +192,7 @@ def main(argv: list[str] | None = None) -> int:
         print(__version__)
         return 0
     try:
-        metrics_out, argv = _extract_metrics_out(argv)
+        gopts, argv = _extract_global_flags(argv)
     except ValueError as e:
         print(f"goleft-tpu-torch: {e}", file=sys.stderr)
         return 1
@@ -149,17 +204,40 @@ def main(argv: list[str] | None = None) -> int:
         print(f"unknown subcommand: {prog}\n", file=sys.stderr)
         print(usage(), file=sys.stderr)
         return 1
+
+    from . import obs
+
+    obs.configure_logging(gopts["log_level"] or (
+        "debug" if gopts["verbose"] >= 2
+        else "info" if gopts["verbose"] else "warning"))
+    if gopts["inject_faults"]:
+        from .resilience import faults
+
+        faults.install(gopts["inject_faults"])
+    if gopts["trace_out"]:
+        obs.set_device_events(True)
+    trace_id = None
     rc = 1
     t0 = time.perf_counter()
     try:
-        rc = _run_command(prog, argv[1:])
+        with obs.trace(f"run.{prog}", kind="cli",
+                       argv=" ".join(argv[1:])) as root:
+            trace_id = root.trace_id
+            rc = _run_command(prog, argv[1:])
+            root.attrs["exit_code"] = rc
         return rc
     finally:
-        # written even when the command failed: a failed run's manifest
-        # is the one most worth keeping
-        if metrics_out:
-            _write_manifest(metrics_out, prog, argv[1:], rc,
-                            time.perf_counter() - t0)
+        # written even when the command failed: a failed run's trace and
+        # manifest are the ones most worth keeping
+        if gopts["trace_out"]:
+            try:
+                obs.get_tracer().write_chrome_trace(gopts["trace_out"])
+            except OSError as e:
+                print(f"goleft-tpu-torch: could not write --trace-out: "
+                      f"{e}", file=sys.stderr)
+        if gopts["metrics_out"]:
+            _write_manifest(gopts["metrics_out"], prog, argv[1:], rc,
+                            time.perf_counter() - t0, trace_id)
 
 
 if __name__ == "__main__":

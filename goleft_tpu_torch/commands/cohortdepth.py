@@ -26,8 +26,16 @@ every CRAM handle: the rANS-Nx16 entropy stage of each container runs
 in the CUDA kernel of csrc/rans_kernel.cu, and the records decode from
 its output on the host.
 
-Not ported, refused with one line: ``--checkpoint-dir`` / ``--resume``,
-remote inputs and the multi-process path.
+``--checkpoint-dir`` commits each computed region's per-sample columns
+to resilience/checkpoint.py's store in one journal commit, keyed by
+(file_key(input), window, mapq, region) as the JAX package keys them, so
+a store either package wrote resumes under the other; ``--resume``
+replays the journal and skips every fully committed region (no decode,
+no launch). Each computed region passes the ``shard`` fault site, where
+``--inject-faults shard:after=N:kill`` kills the run between commits.
+Inputs may be ``https://`` or ``s3://`` URLs (io/remote.py).
+
+Not ported, refused with one line: the multi-process path.
 """
 
 from __future__ import annotations
@@ -39,10 +47,11 @@ import sys
 
 import numpy as np
 
+from .. import obs
 from ..device import resolve_device
+from ..io import remote
 from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
-from ..io.cram import is_remote
 from ..io.fai import read_fai, write_fai
 from ..ops.coverage import window_bounds
 from ..utils.decode_scaling import auto_processes, effective_cores
@@ -92,20 +101,13 @@ def cohort_regions(fai_records, chrom: str, window: int,
     return out
 
 
-def _refuse_remote(paths) -> None:
-    for p in paths:
-        if p and is_remote(p):
-            raise SystemExit(f"cohortdepth: {p}: remote inputs are not "
-                             "ported to goleft_tpu_torch yet")
-
-
 def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
                          fai: str | None = None, window: int = 250,
                          mapq: int = 1, chrom: str = "",
                          processes: int = 8, engine: str = "auto",
                          bed: str | None = None, prefetch_depth: int = 0,
-                         *, quarantine, decode_device: bool = False,
-                         device=None):
+                         *, quarantine, checkpoint=None,
+                         decode_device: bool = False, device=None):
     """(sample_names, block generator). Each block is (chrom, starts,
     ends, vals), vals an int64 (samples, n_windows) array of
     round-half-up window means.
@@ -117,13 +119,16 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
     Each per-sample shard task runs under the retry policy. A sample
     that fails to open is dropped before any output; one that fails
     permanently mid-run is put in ``quarantine`` and zero-fills its
-    remaining shards. ``device``: the card unless ``"cpu"``."""
+    remaining shards. ``checkpoint`` (a CheckpointStore): each computed
+    region's columns are committed after it is emitted, and a region
+    whose every column is committed is restored from the store with no
+    decode and no launch. ``device``: the card unless ``"cpu"``."""
     device = resolve_device(device)
-    _refuse_remote([reference, fai, bed, *bams])
     fai_path = fai or (reference + ".fai" if reference else None)
     if fai_path is None:
         raise SystemExit("cohortdepth: need -r reference or --fai")
-    if not os.path.exists(fai_path) and reference:
+    if not remote.exists(fai_path) and reference \
+            and not remote.is_remote(reference):
         write_fai(reference)
     regions = cohort_regions(read_fai(fai_path), chrom, window, bed)
     if not regions:
@@ -139,7 +144,7 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
         if getattr(h, "is_cram", False):
             bai = None
         else:
-            bai = read_bai(b + ".bai" if os.path.exists(b + ".bai")
+            bai = read_bai(b + ".bai" if remote.exists(b + ".bai")
                            else b[:-4] + ".bai")
         return h, bai, get_short_name(b, h.header)
 
@@ -194,8 +199,10 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
 
     from ..plan import Executor, Step
 
-    pex = Executor(quarantine=quarantine)
+    pex = Executor(quarantine=quarantine, checkpoint=checkpoint)
     timer = StageTimer()
+    # the sample threads' spans parent under the caller's span
+    span_ctx = obs.capture()
 
     def sample_sums(i, region):
         """Window sums of sample i over one shard, under the per-sample
@@ -226,7 +233,7 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
                 return depth_engine.run_segments(seg_s, seg_e, None, s,
                                                  e)[2]
 
-        with timer.stage("sample-shard"):
+        with obs.attach(span_ctx), timer.stage("sample-shard"):
             return pex.run(Step(key=(names[i], s, e), fn=body,
                                 quarantine_key=i, quarantine_name=names[i],
                                 quarantine_source=paths[i],
@@ -241,6 +248,22 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
             .astype(np.int64)
         return c, starts, ends, vals
 
+    # checkpoint keys: content identity per (sample, region). A region
+    # whose every column is committed leaves the list the engines see,
+    # so it is neither decoded nor launched
+    fkeys = []
+    if checkpoint is not None:
+        from ..parallel.scheduler import file_key
+
+        fkeys = [file_key(b) for b in paths]
+
+    def region_keys(r):
+        return [("cohortdepth", fk, window, mapq, tuple(r)) for fk in fkeys]
+
+    compute_regions = [
+        r for r in regions if checkpoint is None
+        or not all(checkpoint.has(k) for k in region_keys(r))]
+
     S = len(handles)
 
     def shard_serial(region):
@@ -248,29 +271,67 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
 
     def blocks():
         if processes <= 1 or effective_cores() <= 1:
-            for r in regions:
+            for r in compute_regions:
                 yield emit_block(r, shard_serial(r))
             return
         with cf.ThreadPoolExecutor(max_workers=processes) as ex:
             def submit(r):
                 return [ex.submit(sample_sums, i, r) for i in range(S)]
 
-            pending = submit(regions[0])
-            for k, r in enumerate(regions):
+            pending = submit(compute_regions[0])
+            for k, r in enumerate(compute_regions):
                 sums = np.stack([f.result() for f in pending])
-                if k + 1 < len(regions):
-                    pending = submit(regions[k + 1])
+                if k + 1 < len(compute_regions):
+                    pending = submit(compute_regions[k + 1])
                 yield emit_block(r, sums)
 
     def blocks_prefetched():
         from ..parallel.prefetch import ChunkPrefetcher
 
-        with ChunkPrefetcher(regions, shard_serial, depth=prefetch_depth,
+        with ChunkPrefetcher(compute_regions, shard_serial,
+                             depth=prefetch_depth,
                              processes=processes) as pf:
             for ch in pf:
                 yield emit_block(ch.meta, ch.value)
 
-    return names, blocks_prefetched() if prefetch_depth > 0 else blocks()
+    gen = blocks_prefetched() if prefetch_depth > 0 else blocks()
+
+    from ..resilience import faults
+
+    def region_step(r, it):
+        """One region as a plan Step: the ``shard`` fault site fires per
+        computed region (between journal commits, where a kill clause
+        lands), and a fully committed region is restored from the store
+        (no fault site, no decode). ``retry=False``: the per-sample
+        Steps inside carry the policy."""
+        c, s, e = r
+
+        def restore(cols):
+            starts, ends, _, _ = window_bounds(s, e, window)
+            return c, starts, ends, np.stack(cols)
+
+        def commit(blk):
+            vals = blk[3]
+            return [(k, vals[i]) for i, k in enumerate(region_keys(r))
+                    if i not in quarantine]
+
+        return Step(key=tuple(r), fn=lambda: next(it), site="shard",
+                    retry=False,
+                    checkpoint_keys=(region_keys(r)
+                                     if checkpoint is not None else None),
+                    restore=restore, commit=commit)
+
+    def with_resilience(inner):
+        """Resumed blocks (from the store, in region order) between the
+        computed ones, each computed region committed in one journal
+        commit, all through the plan Executor."""
+        it = iter(inner)
+        for r in regions:
+            yield pex.run(region_step(r, it))
+
+    if checkpoint is not None or faults.get_plan() is not None:
+        gen = with_resilience(gen)
+    return names, gen
 
 
 def format_block(c, starts, ends, vals) -> str:
@@ -290,28 +351,41 @@ def run_cohortdepth(bams: list[str], reference: str | None = None,
                     resume: bool = False, decode_device: bool = False,
                     device=None) -> int:
     """Write the matrix to ``out`` (stdout); return the exit code: 0, or
-    3 when samples were quarantined (the partial matrix was written)."""
-    if checkpoint_dir or resume:
-        raise SystemExit("cohortdepth: --checkpoint-dir and --resume are "
-                         "not ported to goleft_tpu_torch yet")
+    3 when samples were quarantined (the partial matrix was written, and
+    with ``checkpoint_dir`` its ``quarantine.json``). ``checkpoint_dir``
+    commits each computed region; ``resume`` replays the store's journal
+    first and skips the regions it holds."""
     if int(os.environ.get("GOLEFT_TPU_NUM_PROCESSES", "1") or 1) > 1:
         raise SystemExit("cohortdepth: the multi-process path is not "
                          "ported to goleft_tpu_torch yet")
+    if resume and not checkpoint_dir:
+        raise SystemExit("cohortdepth: --resume requires --checkpoint-dir")
+    from ..resilience.checkpoint import CheckpointStore
     from ..resilience.policy import Quarantine
 
     out = out or sys.stdout
     timer = StageTimer()
     quarantine = Quarantine()
-    names, blocks = cohort_matrix_blocks(
-        bams, reference=reference, fai=fai, window=window, mapq=mapq,
-        chrom=chrom, processes=processes, engine=engine, bed=bed,
-        prefetch_depth=prefetch_depth, quarantine=quarantine,
-        decode_device=decode_device, device=device)
-    out.write("#chrom\tstart\tend\t" + "\t".join(names) + "\n")
-    for blk in blocks:
-        with timer.stage("format"):
-            out.write(format_block(*blk))
+    checkpoint = CheckpointStore(checkpoint_dir, resume=resume) \
+        if checkpoint_dir else None
+    try:
+        names, blocks = cohort_matrix_blocks(
+            bams, reference=reference, fai=fai, window=window, mapq=mapq,
+            chrom=chrom, processes=processes, engine=engine, bed=bed,
+            prefetch_depth=prefetch_depth, quarantine=quarantine,
+            checkpoint=checkpoint, decode_device=decode_device,
+            device=device)
+        out.write("#chrom\tstart\tend\t" + "\t".join(names) + "\n")
+        for blk in blocks:
+            with timer.stage("format"):
+                out.write(format_block(*blk))
+    finally:
+        if checkpoint is not None:
+            checkpoint.close()
     if quarantine:
+        if checkpoint_dir:
+            quarantine.write(os.path.join(checkpoint_dir,
+                                          "quarantine.json"))
         print(quarantine.exit_summary(), file=sys.stderr)
         return 3
     return 0
@@ -345,9 +419,13 @@ def main(argv=None):
                         "each container in the CUDA kernel on the card "
                         "(identical output)")
     p.add_argument("--checkpoint-dir", default=None,
-                   help="checkpoint store (not ported yet)")
+                   help="atomic checkpoint store: each region's per-sample "
+                        "columns and an fsync'd journal; with --resume a "
+                        "killed run restarts from its committed regions "
+                        "with the same output")
     p.add_argument("--resume", action="store_true",
-                   help="resume from --checkpoint-dir (not ported yet)")
+                   help="replay the checkpoint journal and skip committed "
+                        "regions (requires --checkpoint-dir)")
     add_no_crc_flag(p)
     p.add_argument("bams", nargs="+")
     a = p.parse_args(argv)

@@ -32,6 +32,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import resolve_device
 from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, filter_clip_segments, open_bam_file
@@ -163,7 +164,8 @@ class DepthEngine:
             dd[:n_ent] = d
             ll[:n_ent] = ln
             with self._lock:
-                sums, cls_p = shard_depth_pipeline_packed_cls_packed(
+                sums, cls_p = obs.dispatch(
+                    "depth", shard_depth_pipeline_packed_cls_packed,
                     self._put(dd), self._put(ll), int(base), *scalars,
                     length=self.length, window=self.w_eff,
                 )
@@ -178,7 +180,8 @@ class DepthEngine:
                 seg_e[:n] = seg_end
                 keep[:n] = True if kp is None else kp
             with self._lock:
-                sums, cls_p = shard_depth_pipeline_cls_packed(
+                sums, cls_p = obs.dispatch(
+                    "depth", shard_depth_pipeline_cls_packed,
                     self._put(seg_s), self._put(seg_e), self._put(keep),
                     *scalars, length=self.length, window=self.w_eff,
                 )
@@ -240,13 +243,15 @@ def write_shard_output(
 def _setup(bam, reference, fai, window, min_cov, max_mean_depth, mapq,
            chrom, bed, stats, device):
     """Open the BAM (its .bai) or CRAM (its .crai, inside the handle),
-    make the regions and the engine (the engine's device check
-    initialises CUDA)."""
+    local or a URL, make the regions and the engine (the engine's device
+    check initialises CUDA)."""
+    from ..io import remote
+
     handle = open_bam_file(bam)
     if getattr(handle, "is_cram", False):
         bai = None
     else:
-        bai = read_bai(bam + ".bai" if os.path.exists(bam + ".bai")
+        bai = read_bai(bam + ".bai" if remote.exists(bam + ".bai")
                        else bam[:-4] + ".bai")
     fai_path = fai or (reference + ".fai" if reference else None)
     if bed is None:
@@ -254,8 +259,9 @@ def _setup(bam, reference, fai, window, min_cov, max_mean_depth, mapq,
             raise SystemExit(
                 "depth: need -r reference (with .fai) or -b bed regions"
             )
-        if not os.path.exists(fai_path):
-            if reference and os.path.exists(reference):
+        if not remote.exists(fai_path):
+            if reference and not remote.is_remote(reference) \
+                    and os.path.exists(reference):
                 from ..io.fai import write_fai
 
                 write_fai(reference)
@@ -296,14 +302,19 @@ def run_depth(
     """``stage_totals``, when given, receives the StageTimer's seconds:
     ``setup`` and ``shard-loop`` (wall clock of the main thread), and
     ``host-decode`` / ``device-compute`` / ``write-output`` (summed over
-    the shard threads). ``device``: the card unless ``"cpu"``."""
-    if cache_dir or profile_dir:
-        raise SystemExit("depth: --cache and --profile are not ported to "
-                         "goleft_tpu_torch yet")
-    from ..parallel.scheduler import run_sharded
-    from ..utils.profiling import StageTimer
+    the shard threads). ``device``: the card unless ``"cpu"``.
+
+    ``cache_dir`` keys each shard's host arrays as (chrom, start, end,
+    (file_key(bam), (window, min_cov, max_mean_depth, mapq))), as the
+    JAX package does: a hit replays them with no decode and no launch.
+    ``profile_dir`` runs the shard loop under ``torch.profiler`` (a
+    Chrome trace in the directory) and logs the stage report."""
+    from ..obs import get_registry
+    from ..parallel.scheduler import ResultCache, file_key, run_sharded
+    from ..utils.profiling import StageTimer, trace
 
     timer = StageTimer()
+    reg = get_registry()
     with timer.stage("setup"):
         handle, bai, regions, fa, engine = _setup(
             bam, reference, fai, window, min_cov, max_mean_depth, mapq,
@@ -313,21 +324,26 @@ def run_depth(
     depth_path = f"{prefix}{suffix}.depth.bed"
     call_path = f"{prefix}{suffix}.callable.bed"
     tid_of = {n: i for i, n in enumerate(hdr.ref_names)}
+    rc = ResultCache(cache_dir) if cache_dir else None
+    fkey = file_key(bam) if cache_dir else bam
 
-    def shard_fn(c, s, e):
+    def shard_fn(c, s, e, _fk):
         with timer.stage("host-decode"):
             seg_s, seg_e = _decode_shard_segments(
                 handle, bai, tid_of.get(c, -1), s, e, mapq)
         with timer.stage("device-compute"):
             return engine.run_segments(seg_s, seg_e, None, s, e)
 
+    params = (window, min_cov, max_mean_depth, mapq)
+    tasks = [(c, s, e, (fkey, params)) for (c, s, e) in regions]
     n_failed = 0
-    with timer.stage("shard-loop"), open(depth_path, "w") as dout, \
-            open(call_path, "w") as cout:
+    with timer.stage("shard-loop"), trace(profile_dir), \
+            open(depth_path, "w") as dout, open(call_path, "w") as cout:
         for (c, s, e), res in zip(
-            regions, run_sharded(regions, shard_fn, processes=processes,
-                                 retries=1),
+            regions, run_sharded(tasks, shard_fn, processes=processes,
+                                 retries=1, cache=rc),
         ):
+            reg.counter("depth.shards_total").inc()
             if res.error is not None:
                 # reference behavior: failed shard reports in red, others
                 # keep going, nonzero exit at the end
@@ -337,11 +353,14 @@ def run_depth(
                     msg = f"\033[31m{msg}\033[0m"
                 print(msg, file=sys.stderr)
                 n_failed += 1
+                reg.counter("depth.shards_failed_total").inc()
                 continue
             starts, ends, sums, cls = res.value
             with timer.stage("write-output"):
                 write_shard_output(c, starts, ends, sums, cls, s,
                                    dout, cout, fa)
+    if profile_dir:
+        timer.log_report()
     if stage_totals is not None:
         stage_totals.update(timer.totals)
     if n_failed:
@@ -373,9 +392,11 @@ def main(argv=None):
     p.add_argument("-b", "--bed", default=None,
                    help="restrict to regions in this bed")
     p.add_argument("--cache", default=None,
-                   help="shard result-cache directory (not ported yet)")
+                   help="shard result-cache directory: a rerun replays "
+                        "cached shards without decoding or launching")
     p.add_argument("--profile", default=None,
-                   help="profiler trace directory (not ported yet)")
+                   help="write a torch.profiler Chrome trace of the "
+                        "shard loop to this directory")
     p.add_argument("--prefix", required=True)
     add_no_crc_flag(p)
     p.add_argument("bam")

@@ -75,8 +75,9 @@ def read_bai(path_or_bytes) -> BaiIndex:
     if isinstance(path_or_bytes, (bytes, bytearray)):
         data = bytes(path_or_bytes)
     else:
-        with open(path_or_bytes, "rb") as fh:
-            data = fh.read()
+        from . import remote
+
+        data = remote.fetch_bytes(path_or_bytes)
     if data[:4] != BAI_MAGIC:
         raise ValueError("not a BAI file (bad magic)")
 

@@ -494,21 +494,23 @@ class _PyBamAdapter:
 
 
 def open_bam_file(path: str):
-    """Open a BAM or CRAM from disk. A CRAM opens as io/cram.py's
-    CramFile (region access through its .crai); a BAM as the lazy native
-    handle (mmap of the compressed file) when the native library is
-    available, else the pure-Python adapter. Corrupt input exits with
-    one clean line; remote paths are refused."""
+    """Open a BAM or CRAM. A CRAM opens as io/cram.py's CramFile (region
+    access through its .crai); a BAM as the lazy native handle (mmap of
+    the compressed file) when the native library is available, else the
+    pure-Python adapter. A URL (io/remote.py) is staged once through the
+    data plane and opened the same way, as the JAX package does: a
+    remote BAM is a native handle over the fetched bytes. Corrupt input
+    exits with one clean line."""
     import zlib
 
-    from . import native
-    from .cram import CramFile, is_remote
+    from . import native, remote
+    from .cram import CramFile
 
-    if is_remote(path):
-        raise SystemExit(f"{path}: remote inputs are not ported to "
-                         "goleft_tpu_torch yet")
-    with open(path, "rb") as fh:
-        magic = fh.read(4)
+    if remote.is_remote(path):
+        magic = remote.read_range(path, 0, 4)
+    else:
+        with open(path, "rb") as fh:
+            magic = fh.read(4)
     if magic == b"CRAM":
         try:
             return CramFile.from_file(path)
@@ -516,9 +518,10 @@ def open_bam_file(path: str):
             raise SystemExit(f"{path}: CRAM open failed: {e}") from e
     try:
         if native.get_lib() is not None:
+            if remote.is_remote(path):
+                return BamFile(remote.fetch_bytes(path))
             return BamFile.from_file(path)
-        with open(path, "rb") as fh:
-            return _PyBamAdapter(fh.read())
+        return _PyBamAdapter(remote.fetch_bytes(path))
     except (ValueError, zlib.error) as e:
         raise SystemExit(f"{path}: {e}") from e
 

@@ -16,6 +16,7 @@ import struct
 import zlib
 from typing import BinaryIO
 
+from ..resilience import faults as _faults
 
 # Fixed empty final block from the SAM spec (magic EOF marker).
 BGZF_EOF = bytes(
@@ -70,10 +71,15 @@ class BgzfReader:
 
     @classmethod
     def from_file(cls, path: str) -> "BgzfReader":
+        from . import remote
+
+        if remote.is_remote(path):
+            return cls(remote.fetch_bytes(path))
         with open(path, "rb") as fh:
             return cls(fh.read())
 
     def _load_block(self, coffset: int) -> None:
+        _faults.maybe_fail("bgzf", coffset)
         if coffset >= len(self._data):
             self._coffset = coffset
             self._block = b""

@@ -15,9 +15,19 @@ import gzip
 
 def load_crai_entries(path: str) -> list[tuple[int, int, int, int]]:
     """(seq_id, aln_start (1-based), aln_span, container_offset) per
-    index line; lines with fewer than six fields are skipped."""
+    index line; lines with fewer than six fields are skipped. A URL is
+    read through io/remote.py."""
+    import io as _pyio
+
+    from . import remote
+
     entries = []
-    with gzip.open(path, "rt") as fh:
+    if remote.is_remote(path):
+        fh = _pyio.TextIOWrapper(gzip.GzipFile(
+            fileobj=_pyio.BytesIO(remote.fetch_bytes(path))))
+    else:
+        fh = gzip.open(path, "rt")
+    with fh:
         for line in fh:
             t = line.split("\t")
             if len(t) < 6:

@@ -4,7 +4,8 @@ A copy of the JAX package's io/cram.py on its Python codec paths, for
 the port's CRAM input (``depth`` and ``cohortdepth``). The
 ``block_decoder`` hook of :class:`CramFile` is where
 ops/rans_device.py's DeviceBlockDecoder runs the rANS-Nx16 entropy
-stage on the card. Remote (``https://``, ``s3://``) paths are refused.
+stage on the card. A remote (``https://``, ``s3://``) path is staged once
+through io/remote.py, its ``.crai`` sibling too.
 Container decode is timed in two stages of utils/profiling.py, summed
 over threads: ``cram.blocks`` (block framing and entropy decode, host
 or device) and ``cram.records`` (record decode into columns).
@@ -1458,10 +1459,15 @@ class CramFile:
         import mmap
         import os
 
-        if is_remote(path):
-            raise ValueError(f"{path}: remote inputs are not ported to "
-                             "goleft_tpu_torch yet")
+        from . import remote
+
         crai = path + ".crai"
+        if remote.is_remote(path):
+            # stage the object once (block-cached ranged fetches); the
+            # .crai sibling resolves through the same data plane
+            data = remote.fetch_bytes(path)
+            return cls(memoryview(data),
+                       crai_path=crai if remote.exists(crai) else None)
         with open(path, "rb") as fh:
             mm = mmap.mmap(fh.fileno(), 0, access=mmap.ACCESS_READ)
         return cls(memoryview(mm),
@@ -1607,11 +1613,6 @@ def _sam_header_text(data: bytes) -> str:
         if 0 <= n <= len(data) - 4:
             return data[4:4 + n].decode(errors="replace")
     return data.rstrip(b"\x00").decode(errors="replace")
-
-
-def is_remote(path: str) -> bool:
-    """True for the URL schemes the JAX package reads remotely."""
-    return path.startswith(("http://", "https://", "s3://", "gs://"))
 
 
 def _records_to_columns(recs, tid, start, end):

@@ -22,9 +22,14 @@ class FaiRecord:
 
 
 def read_fai(path: str) -> list[FaiRecord]:
+    from . import remote
+
     out = []
-    with open(path) as fh:
-        lines = fh.read().splitlines()
+    if remote.is_remote(path):
+        lines = remote.fetch_bytes(path).decode().splitlines()
+    else:
+        with open(path) as fh:
+            lines = fh.read().splitlines()
     for lineno, line in enumerate(lines, 1):
             line = line.rstrip("\n")
             if not line:
@@ -82,16 +87,22 @@ class Faidx:
     """Random access to FASTA subsequences via the .fai index."""
 
     def __init__(self, fasta_path: str, fai_path: str | None = None):
+        from . import remote
+
         self.path = fasta_path
         if fai_path:
             self.records = {r.name: r for r in read_fai(fai_path)}
+        elif remote.is_remote(fasta_path):
+            # no indexing over the network: the .fai sibling must exist
+            self.records = {
+                r.name: r for r in read_fai(fasta_path + ".fai")}
         else:
             try:
                 self.records = {
                     r.name: r for r in read_fai(fasta_path + ".fai")}
             except FileNotFoundError:
                 self.records = {r.name: r for r in write_fai(fasta_path)}
-        self._fh = open(fasta_path, "rb")
+        self._fh = remote.source_io(fasta_path)
 
     def close(self) -> None:
         self._fh.close()

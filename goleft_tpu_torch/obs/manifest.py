@@ -14,7 +14,8 @@ ledger's ingestion read it as they read the reference's. Its blocks:
   ``Tracer.summary``; the port fills it from utils/profiling.py's stage
   totals and the caller's root span (the CLI's ``run.<command>``);
 - ``metrics``: the counter registry's snapshot;
-- ``trace_id``: a fresh hex id per run.
+- ``trace_id``: the run's trace id (the CLI's ``run.<command>`` root,
+  as in the trace ``--trace-out`` writes), else a fresh hex id.
 
 The caller's own fields go in through ``extra`` (the CLI's ``command``,
 ``exit_code``, ``import_seconds``, ``kernel_launches``, ``native_io``).
@@ -77,7 +78,8 @@ def env_provenance() -> dict:
 
 def build_manifest(argv: list[str] | None = None,
                    spans: dict | None = None, device=None,
-                   extra: dict | None = None) -> dict:
+                   extra: dict | None = None,
+                   trace_id: str | None = None) -> dict:
     """The manifest of this process's run. ``spans`` are added to the
     stage totals (the caller's root span); ``device`` is the run's
     device as ``resolve_device`` takes it (None: the card)."""
@@ -95,7 +97,7 @@ def build_manifest(argv: list[str] | None = None,
         "spans": dict(sorted({**process_spans(), **(spans or {})}
                              .items())),
         "metrics": get_registry().snapshot(),
-        "trace_id": secrets.token_hex(8),
+        "trace_id": trace_id or secrets.token_hex(8),
     }
     if extra:
         doc.update(extra)

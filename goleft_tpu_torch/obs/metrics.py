@@ -1,6 +1,7 @@
 """Process-wide counters: the counterpart of the JAX package's
-obs/metrics.py, trimmed to the monotonic counters the pair-HMM path
-touches (``pairhmm.*``, ``resilience.*``).
+obs/metrics.py, trimmed to monotonic counters (no gauges, no
+histograms): ``pairhmm.*``, ``decode.*``, ``depth.*``, ``resilience.*``,
+``result_cache.*``, ``checkpoint.*``, ``fetch.*`` and the rest.
 
 One :data:`REGISTRY` is shared by the whole process; ``snapshot()``
 sorts names so two snapshots of the same state serialise to the same

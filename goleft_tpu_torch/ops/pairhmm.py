@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from .. import obs
 from ..device import KernelFault, resolve_device
 from ..obs import get_registry
 from ..plan import Executor, Step
@@ -140,16 +141,17 @@ def forward_bucket_device(packed, trans: np.ndarray, rescale: bool,
     version), D2H → (contribs, shifts) numpy arrays. On the card the
     kernel stage ends in a synchronize, so each stage's clock holds its
     own work; an error the kernel left on the card surfaces there as a
-    :class:`KernelFault`."""
+    :class:`KernelFault`. Under device events (``--trace-out``) the launch
+    is one fenced ``device.pairhmm`` span."""
     with TIMER.stage("device-h2d"):
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
              for a in (*packed, trans)]
     with TIMER.stage("device-kernel"):
-        contribs, shifts = pairhmm_kernel.forward_bucket(*t,
-                                                         rescale=rescale)
+        contribs, shifts = obs.dispatch(
+            "pairhmm", pairhmm_kernel.forward_bucket, *t, rescale=rescale)
         if device.type == "cuda":
             try:
-                torch.cuda.synchronize(device)
+                torch.cuda.current_stream(device).synchronize()
             except RuntimeError as e:
                 raise KernelFault(f"pairhmm kernel failed on the card: "
                                   f"{e}") from e

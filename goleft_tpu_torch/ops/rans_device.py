@@ -40,6 +40,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import obs
 from ..io import rans_nx16 as _rx
 from ..device import KernelFault
 from ..io.rans_nx16 import ParsedNx16, parse_nx16
@@ -227,7 +228,9 @@ def _decode_group(key, grp: list[ParsedNx16], t: dict) -> list:
         lit = payload_rows(t["payload"], t["poff"], t["plen"],
                            lit_width(grp))
     else:
-        lit, flags = group_stage(key, grp, t)
+        # one launch; under device events a fenced device.rans span
+        # that waits on this thread's current stream only
+        lit, flags = obs.dispatch("rans", group_stage, key, grp, t)
         if flags is not None:
             bad = flags.to(torch.int64)
     parts = []

@@ -26,6 +26,7 @@ from typing import Any, Callable, Iterable, Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..obs import get_registry
 
 
@@ -77,11 +78,14 @@ class ChunkPrefetcher:
         reg = get_registry()
         self._c_chunks = reg.counter("prefetch.chunks_total")
         self._c_staged = reg.counter("prefetch.bytes_staged_total")
+        # producer spans parent under the constructing thread's span
+        self._span_ctx = obs.capture()
 
     def _run_one(self, index: int, meta):
         if self._cancelled.is_set():
             raise PrefetchCancelled(index)
-        value = self._produce(meta)
+        with obs.attach(self._span_ctx):
+            value = self._produce(meta)
         self._c_staged.inc(int(getattr(value, "nbytes", 0)))
         self._c_chunks.inc()
         return value

@@ -1,3 +1,4 @@
-"""Resilience of the port: deterministic fault injection (faults.py) and
-the retry policy with quarantine (policy.py), trimmed copies of the JAX
-package's modules of the same names."""
+"""Resilience of the port: deterministic fault injection (faults.py),
+the retry policy with quarantine (policy.py) and the checkpoint store
+(checkpoint.py), trimmed copies of the JAX package's modules of the same
+names."""

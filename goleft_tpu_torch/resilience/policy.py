@@ -59,11 +59,14 @@ class RetriesExhausted(RuntimeError):
 @dataclass(frozen=True)
 class RetryPolicy:
     """Retry budget + backoff schedule + error classification.
-    ``retries`` counts re-attempts (1: up to 2 attempts in all)."""
+    ``retries`` counts re-attempts (1: up to 2 attempts in all);
+    ``deadline_s`` bounds one task's attempts and backoffs in wall
+    clock (the remote fetches' budget)."""
 
     retries: int = 1
     base_delay_s: float = 0.05
     max_delay_s: float = 2.0
+    deadline_s: float | None = None
 
     def classify(self, exc: BaseException) -> str:
         """'transient' (retry) or 'permanent' (fail fast)."""
@@ -94,6 +97,7 @@ class RetryPolicy:
         permanent. Only ``Exception`` is handled, and a KernelFault
         is raised as it is."""
         attempt = 0
+        t0 = time.monotonic()
         while True:
             attempt += 1
             try:
@@ -105,6 +109,10 @@ class RetryPolicy:
                 if cls == "permanent" or attempt > self.retries:
                     raise RetriesExhausted(key, e, attempt, cls) from e
                 delay = self.backoff_s(key, attempt)
+                if self.deadline_s is not None and (
+                        time.monotonic() - t0 + delay >= self.deadline_s):
+                    raise RetriesExhausted(key, e, attempt,
+                                           "deadline") from e
                 get_registry().counter("resilience.retries_total").inc()
                 log.debug("retrying %r after %s (attempt %d, backoff "
                           "%.3fs)", key, e, attempt, delay)

@@ -304,11 +304,15 @@ def test_native_window_reductions_agree(c1_bam, mixed):
             acc["wsums"])
 
 
-def test_refusals(mixed, cohort, monkeypatch):
-    """What is not ported says so in one line; the hybrid engine on
+def test_refusals(mixed, cohort, monkeypatch, tmp_path):
+    """What is not ported says so in one line (the multi-process path);
+    the flags this used to refuse now run: ``--checkpoint-dir`` and an
+    ``s3://`` cohort give the JAX package's matrix. The hybrid engine on
     BAM input runs, and needs the native io as in the reference."""
+    from goleft_tpu.io.remote_stub import StubServer
+
     cohort_paths, fa, bams = mixed
-    crams, fai, _ = cohort
+    crams, fai, want_crams = cohort
     want = io.StringIO()
     assert jax_run(bams, reference=fa, engine="hybrid", window=250,
                    out=want) == 0
@@ -328,12 +332,18 @@ def test_refusals(mixed, cohort, monkeypatch):
         assert run_cohortdepth(bams, reference=fa, out=out,
                                device=CPU) == 0
         assert out.getvalue() == want.getvalue()
-    with pytest.raises(SystemExit, match="checkpoint-dir"):
-        run_cohortdepth(crams, fai=fai, checkpoint_dir="ck",
-                        out=io.StringIO(), device=CPU)
-    with pytest.raises(SystemExit, match="remote inputs"):
-        run_cohortdepth(["s3://bucket/a.cram"], fai=fai,
-                        out=io.StringIO(), device=CPU)
+    rc, got = _port(crams, fai, checkpoint_dir=str(tmp_path / "ck"))
+    assert rc == 0 and got == want_crams
+    with StubServer() as srv:
+        urls = []
+        for p in crams:
+            name = os.path.basename(p)
+            srv.put(f"bucket/{name}", open(p, "rb").read())
+            srv.put(f"bucket/{name}.crai", open(p + ".crai", "rb").read())
+            urls.append(f"s3://bucket/{name}")
+        monkeypatch.setenv("GOLEFT_TPU_S3_ENDPOINT", srv.url)
+        rc, got = _port(urls, fai)
+        assert rc == 0 and got == want_crams
     monkeypatch.setenv("GOLEFT_TPU_NUM_PROCESSES", "2")
     with pytest.raises(SystemExit, match="multi-process"):
         run_cohortdepth(crams, fai=fai, out=io.StringIO(), device=CPU)

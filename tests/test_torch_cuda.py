@@ -320,3 +320,46 @@ def test_cuda_tensors_never_reach_the_plain_rans(monkeypatch):
     plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
     assert rd.decode_parsed(plans, device=torch.device("cuda")) \
         == [d for d, _ in cases]
+
+
+@pytest.mark.cuda
+def test_dispatch_fences_the_launching_threads_stream():
+    """Under device events each launch is one fenced device span of
+    platform gpu, and the fence waits on the launching thread's stream:
+    a span on a side stream ends after its own kernel, not after a
+    kernel still spinning on the default stream."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch import obs
+
+    tracer = obs.get_tracer()
+    tracer.clear()
+    dev = torch.device("cuda")
+    x = torch.ones(1 << 20, device=dev)
+    obs.set_device_events(True)
+    try:
+        assert obs.dispatch("depth", torch.mul, x, 2).sum().item() \
+            == 2 * x.numel()
+        side = torch.cuda.Stream(dev)
+        # allocated and launched once now: a cudaMalloc, or the lazy load
+        # of a kernel's module at its first launch, waits for the device
+        out = torch.empty_like(x)
+        with torch.cuda.stream(side):
+            torch.add(x, 1, out=out)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(4_000_000_000)  # ~2 s spin on the default stream
+        with torch.cuda.stream(side):
+            obs.dispatch("rans", torch.add, x, 1, out=out)
+            assert side.query()  # the fence waited on this stream
+        default_busy = not torch.cuda.current_stream(dev).query()
+        torch.cuda.synchronize()
+    finally:
+        obs.set_device_events(False)
+    assert out.sum().item() == 2 * x.numel()
+    spans = [sp for sp in tracer.snapshot() if sp.category == "device"]
+    assert [sp.name for sp in spans] == ["device.depth", "device.rans"]
+    assert all(sp.attrs["fenced"] and sp.attrs["platform"] == "gpu"
+               for sp in spans)
+    assert default_busy, "the fence must not wait on other streams"
+    assert spans[1].duration() < 0.5, spans[1].duration()
+    tracer.clear()

@@ -31,7 +31,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
-                 "cohort_bench.py"):
+                 "cohort_bench.py", "flags_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -170,6 +170,55 @@ def test_cpu_cohortdepth_run_loads_no_jax(tmp_path):
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def test_cpu_trace_out_run_loads_no_jax(tmp_path):
+    """The port's CLI with ``--trace-out``, ``--metrics-out``,
+    ``--inject-faults`` and ``depth --cache`` in a fresh interpreter,
+    the command's device pinned to the CPU; then neither jax nor
+    goleft_tpu is loaded, and the trace holds the run."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        import goleft_tpu_torch.device as d
+        _r = d.resolve_device
+        d.resolve_device = lambda device=None: _r("cpu")
+        from goleft_tpu_torch import cli
+        from goleft_tpu_torch.io.bai import build_bai, write_bai
+        from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+        t = {str(tmp_path)!r}
+        with open(t + "/r.fa", "w") as fh:
+            fh.write(">chr1\\n" + "ACGT" * 250 + "\\n")
+        hdr = "@HD\\tVN:1.6\\tSO:coordinate\\n@SQ\\tSN:chr1\\tLN:1000\\n"
+        with open(t + "/t.bam", "wb") as fh:
+            with BamWriter(fh, hdr, ["chr1"], [1000]) as w:
+                for i in range(50):
+                    w.write_record(0, 10 * i, parse_cigar("100M"),
+                                   name=f"r{{i}}")
+        write_bai(build_bai(t + "/t.bam"), t + "/t.bam.bai")
+        rc = cli.main(["--trace-out", t + "/t.json", "--metrics-out",
+                       t + "/m.json", "--inject-faults", "shard:p=0",
+                       "depth", "--cache", t + "/c", "--prefix", t + "/o",
+                       "-r", t + "/r.fa", "-w", "100", t + "/t.bam"])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("RC", rc)
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "RC 0" in r.stdout and "LOADED []" in r.stdout, r.stdout
+    import json
+
+    doc = json.load(open(tmp_path / "t.json"))
+    names = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+    assert names.count("run.depth") == 1 and "device.depth" in names
+    man = json.load(open(tmp_path / "m.json"))
+    root = next(e for e in doc["traceEvents"] if e["name"] == "run.depth")
+    assert man["trace_id"] == root["args"]["trace_id"]
+
+
 def test_resolve_device_raises_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(device.NoCudaDevice):
@@ -252,7 +301,8 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
     assert doc["spans"]["run.depth"]["calls"] == 1
     assert doc["import_seconds"] > 0 and "native_io" in doc
     assert "counters" in doc["metrics"] and "stage_seconds" not in doc
-    assert re.fullmatch(r"[0-9a-f]{16}", doc["trace_id"])
+    # the run's trace id, of the reference's cli-<pid>-<n> shape
+    assert re.fullmatch(r"cli-\d+-\d+", doc["trace_id"])
     assert port.load_manifest(str(out)) == doc
     bad = dict(doc, schema="goleft-tpu.run-manifest/2.0")
     (tmp_path / "bad.json").write_text(__import__("json").dumps(bad))
