@@ -95,7 +95,27 @@ Run from the root of a checkout, on a machine with one CUDA card:
    shard:after=2:kill`` (SIGKILL), resumed (the oracle's bytes, fewer
    rans launches than an uninterrupted run) and resumed again over the
    complete store (0 rans launches, the same bytes);
-11. prints the kernels line, the card's ``nvidia-smi`` name and power
+11. the EM at cohort width: an int16 matrix of 64,445 windows (chr20 at
+   1 kb) x 2,504 samples (the 1000 Genomes phase-3 cohort) with planted
+   deletions and duplications, through ``call_cnvs``'s normalisation and
+   ``_batched_em`` on the card (four 16,384-window f64 chunks); λ of 64
+   sampled windows within rtol = atol = 1e-9 of tests/oracle_emdepth.py
+   and their CN equal to its CN clamped at 8; cn.mops on one chunk
+   against the port's CPU path on 64 of its rows; prints the ms a chunk
+   (CUDA events), the peak of ``torch.cuda.max_memory_allocated`` and
+   window-samples a second;
+12. ``python -m goleft_tpu_torch cnv -w 1000 --vcf --matrix-out`` on 8
+   BAMs of 400,000 150 bp reads (15x) on one 4 Mb contig, a 200 kb het
+   deletion in one sample and a 150 kb duplication in another, under
+   ``--engine device`` (depth-kernel launches from its manifest) and the
+   default engine: both byte-identical to the port's
+   ``run_cnv(device="cpu")``, both planted events called; the
+   ``cohortdepth -w 1000`` window-mean matrix of the same BAMs under
+   ``--engine device`` (one depth launch a sample) byte-identical to the
+   hybrid engine's; then ``emdepth --mops-out --gain-out`` on that
+   matrix, on the card against the CPU (the differing windows are
+   printed on a failure); prints samples x contig bp a second;
+13. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -504,15 +524,21 @@ def fabricate(workdir: str, rng):
                          flag)
     write_bai(idx, bam + ".bai")
     fa = os.path.join(workdir, "ref.fa")
-    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, E2E_LEN)]
-    full = E2E_LEN // 60 * 60
+    write_fasta(fa, rng, E2E_LEN)
+    return bam, fa, (pos, cig, mapq, flag)
+
+
+def write_fasta(path: str, rng, length: int) -> bytes:
+    """A random ACGT contig ``chr1`` in 60-base lines → its bases."""
+    seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, length)]
+    full = length // 60 * 60
     rows = np.concatenate([seq[:full].reshape(-1, 60),
                            np.full((full // 60, 1), 10, np.uint8)], axis=1)
-    with open(fa, "wb") as fh:
+    with open(path, "wb") as fh:
         fh.write(b">chr1\n" + rows.tobytes())
-        if E2E_LEN > full:
+        if length > full:
             fh.write(seq[full:].tobytes() + b"\n")
-    return bam, fa, (pos, cig, mapq, flag)
+    return seq.tobytes()
 
 
 def oracle_beds(reads) -> tuple[str, str]:
@@ -1965,6 +1991,335 @@ def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
     return out
 
 
+# ---- EM and cnv phases ------------------------------------------------
+
+#: the EM at cohort width: chr20 (64,444,167 bp) in 1 kb windows x the
+#: 2,504 samples of the 1000 Genomes phase-3 cohort
+EM_WINDOWS = 64_445
+EM_SAMPLES = 2_504
+EM_CHECK = 64  # windows held against the pure-Python oracle
+#: the cnv cohort: 8 BAMs of 400,000 150 bp reads (15x) on a 4 Mb contig
+CNV_LEN = 4_000_000
+CNV_READS = 400_000
+CNV_SAMPLES = 8
+CNV_WINDOW = 1000
+CNV_DEL = (1_000_000, 1_200_000, 1)  # het deletion: start, end, sample
+CNV_DUP = (2_500_000, 2_650_000, 5)  # duplication (CN3)
+
+
+def load_em_oracle(root: str):
+    """tests/oracle_emdepth.py: the pure-Python f64 transcription of the
+    reference EM (no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "oracle_emdepth", os.path.join(root, "tests", "oracle_emdepth.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def em_matrix(rng, windows: int = None, samples: int = None) -> np.ndarray:
+    """int16 (windows, samples) window means (EM_WINDOWS x EM_SAMPLES by
+    default): per-sample coverage 20-40x times a per-window bias, Poisson
+    counts; het deletions, homozygous deletions and duplications planted
+    in blocks of samples."""
+    windows = windows or EM_WINDOWS
+    samples = samples or EM_SAMPLES
+    cov = rng.uniform(20, 40, samples)
+    bias = rng.gamma(50, 1 / 50, windows)
+    m = np.empty((windows, samples), np.int16)
+    for lo in range(0, windows, 4096):
+        m[lo:lo + 4096] = rng.poisson(bias[lo:lo + 4096, None] * cov)
+    for k in range(40):
+        w = int(rng.integers(0, windows - 300))
+        n = int(rng.integers(20, 300))
+        s = rng.choice(samples, int(rng.integers(1, samples // 40 + 2)),
+                       replace=False)
+        blk = m[w:w + n, s]
+        m[w:w + n, s] = (blk // 2, blk * 0, blk * 3 // 2)[k % 3]
+    return m
+
+
+def em_phase(root: str, dev) -> dict:
+    """The EM at cohort width on the card: the int16 matrix through
+    call_cnvs's normalisation (sample_medians) and _batched_em (four
+    16,384-window f64 chunks); λ of EM_CHECK windows against the oracle
+    (rtol = atol = 1e-9), their CN equal to its CN clamped at 8; cn.mops
+    on the first chunk against the port's CPU path on the same rows."""
+    import torch
+
+    from goleft_tpu_torch.commands import emdepth_cmd as ec
+    from goleft_tpu_torch.models import emdepth as em
+    from goleft_tpu_torch.models import mops
+
+    oracle = load_em_oracle(root)
+    rng = np.random.default_rng(2504)
+    t0 = time.perf_counter()
+    depths = em_matrix(rng)
+    fab_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    med, medmed = ec.sample_medians(depths)
+    median_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    lam, cn = ec._batched_em(depths, med, medmed, device=dev)
+    b.record()
+    b.synchronize()
+    em_wall = time.perf_counter() - t0
+    em_ms = a.elapsed_time(b)
+    peak = torch.cuda.max_memory_allocated(dev)
+    n_chunks = -(-EM_WINDOWS // ec.EM_CHUNK)
+    assert lam.shape == (EM_WINDOWS, 9) and cn.shape == depths.shape
+    assert np.isfinite(lam).all() and cn.min() >= 0 and cn.max() <= 8
+
+    chunk = ec._norm_chunk(depths[:ec.EM_CHUNK], med, medmed, np.float64,
+                           dev)
+
+    def em_chunk():
+        em.cn_batch(em.em_depth_batch(chunk), chunk)
+
+    chunk_ms = cuda_median_ms(em_chunk, reps=3)
+
+    check = np.sort(rng.choice(EM_WINDOWS, EM_CHECK, replace=False))
+    rows = depths[check] / med * medmed  # the host's scaling, in numpy
+    worst = 0.0
+    for j, w in enumerate(check):
+        want = np.array(oracle.em_depth(rows[j]))
+        np.testing.assert_allclose(lam[w], want, rtol=1e-9, atol=1e-9,
+                                   err_msg=f"window {w}")
+        worst = max(worst, float(np.max(np.abs(lam[w] - want))))
+        want_cn = [min(oracle.cn_type(want, x), em.MAX_CN) for x in rows[j]]
+        if cn[w].tolist() != want_cn:
+            bad = np.flatnonzero(cn[w] != np.array(want_cn))
+            raise AssertionError(f"window {w}: CN of samples {bad[:10]} "
+                                 f"{cn[w][bad[:10]]} != oracle "
+                                 f"{np.array(want_cn)[bad[:10]]}")
+
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def mops_chunk():
+        r = mops.mops_batch(chunk)
+        return mops.posterior_cn(r["aik"]), mops.information_gain(r["aik"])
+
+    mops_ms = cuda_median_ms(mops_chunk, reps=2)
+    mops_peak = torch.cuda.max_memory_allocated(dev)
+    r = mops.mops_batch(chunk)
+    sub = np.sort(rng.choice(ec.EM_CHUNK, EM_CHECK, replace=False))
+    rc = mops.mops_batch(ec._norm_chunk(depths[sub], med, medmed,
+                                        np.float64, "cpu"))
+    aik = r["aik"][torch.from_numpy(sub).to(dev)].cpu()
+    np.testing.assert_allclose(aik.numpy(), rc["aik"].numpy(), rtol=1e-9,
+                               atol=1e-9)
+    assert torch.equal(mops.posterior_cn(aik), mops.posterior_cn(rc["aik"]))
+    np.testing.assert_allclose(mops.information_gain(aik).numpy(),
+                               mops.information_gain(rc["aik"]).numpy(),
+                               rtol=1e-9, atol=1e-9)
+    mops_err = float((aik - rc["aik"]).abs().max())
+    del chunk, r
+    torch.cuda.empty_cache()
+    cells = EM_WINDOWS * EM_SAMPLES
+    log(f"EM at {EM_WINDOWS} windows x {EM_SAMPLES} samples (int16 matrix, "
+        f"{depths.nbytes / 1e6:.1f} MB, fabricated in {fab_s:.1f} s): "
+        f"sample medians {median_s:.3f} s; _batched_em {n_chunks} chunks of "
+        f"{ec.EM_CHUNK} in {em_wall:.3f} s wall ({em_ms:.3f} ms by CUDA "
+        f"events, {em_ms / n_chunks:.3f} ms a chunk with the copies and "
+        f"the scaling on the card; {cells / em_wall / 1e6:.3f} M "
+        f"window-samples/s), peak device memory {peak / 1e9:.3f} GB; "
+        f"EM + CN of one resident chunk {chunk_ms:.3f} ms; λ of "
+        f"{EM_CHECK} windows within 1e-9 of the oracle (max abs err "
+        f"{worst:.3g}) and their CN equal; cn.mops of one chunk "
+        f"{mops_ms:.3f} ms (peak {mops_peak / 1e9:.3f} GB), {EM_CHECK} rows "
+        f"equal to the CPU path (aik max abs err {mops_err:.3g})")
+    return {"windows": EM_WINDOWS, "samples": EM_SAMPLES,
+            "chunks": n_chunks, "fabricate_s": fab_s, "median_s": median_s,
+            "batched_em_wall_s": em_wall, "batched_em_ms": em_ms,
+            "ms_a_chunk": em_ms / n_chunks, "resident_chunk_ms": chunk_ms,
+            "window_samples_per_s": cells / em_wall,
+            "peak_bytes": peak, "lambda_max_abs_err": worst,
+            "mops_chunk_ms": mops_ms, "mops_peak_bytes": mops_peak,
+            "mops_aik_max_abs_err": mops_err}
+
+
+def cnv_fabricate(workdir: str, rng):
+    """8 BAMs (cnv0..cnv7) of CNV_READS 150 bp reads on a CNV_LEN contig,
+    half the reads of CNV_DEL's sample dropped in its region and half as
+    many again added in CNV_DUP's; the FASTA. → (bams, fasta)."""
+    from goleft_tpu_torch.io.bai import write_bai
+    from tools.bulk_bam import write_bam_bulk
+
+    bams = []
+    for i in range(CNV_SAMPLES):
+        pos = rng.integers(0, CNV_LEN - READ_LEN, CNV_READS)
+        lo, hi, who = CNV_DEL
+        if i == who:
+            pos = pos[~((pos >= lo) & (pos < hi)
+                        & (rng.random(len(pos)) < 0.5))]
+        lo, hi, who = CNV_DUP
+        if i == who:
+            extra = CNV_READS * (hi - lo) // CNV_LEN // 2
+            pos = np.concatenate([pos, rng.integers(lo, hi, extra)])
+        pos = np.sort(pos)
+        n = len(pos)
+        p = os.path.join(workdir, f"cnv{i}.bam")
+        idx = write_bam_bulk(p, "chr1", CNV_LEN, pos, np.zeros(n, np.int64),
+                             ["150M"], np.full(n, 60, np.uint8),
+                             np.zeros(n, np.uint16))
+        write_bai(idx, p + ".bai")
+        bams.append(p)
+    fa = os.path.join(workdir, "cnv.fa")
+    write_fasta(fa, rng, CNV_LEN)
+    return bams, fa
+
+
+def _diff_rows(what: str, got: str, want: str) -> None:
+    """Fail with the differing rows (windows) of two tables."""
+    if got == want:
+        return
+    g, w = got.splitlines(), want.splitlines()
+    bad = [(k, a, b) for k, (a, b) in enumerate(zip(g, w)) if a != b]
+    raise AssertionError(
+        f"{what}: {len(bad)} rows differ ({len(g)} against {len(w)} rows); "
+        + "; ".join(f"row {k}: got {a!r} want {b!r}" for k, a, b in bad[:8]))
+
+
+def cnv_e2e_phase(root: str, workdir: str) -> dict:
+    """``python -m goleft_tpu_torch cnv -w 1000 --vcf --matrix-out`` on 8
+    fabricated BAMs under ``--engine device`` (depth-kernel launches
+    counted, from 0 in the fresh process) and the default engine: equal
+    bytes, equal to the port's ``run_cnv(device="cpu")``, both planted
+    events called; the ``cohortdepth`` window-mean matrix of the same
+    BAMs under ``--engine device`` byte-identical to the hybrid
+    engine's (the depth kernel checked exactly at cnv's shapes); then
+    ``emdepth --mops-out --gain-out`` on that matrix, on the card and
+    on the CPU."""
+    import io
+
+    from goleft_tpu_torch.commands.cnv import run_cnv
+    from goleft_tpu_torch.commands.emdepth_cmd import run_emdepth
+
+    t0 = time.perf_counter()
+    bams, fa = cnv_fabricate(workdir, np.random.default_rng(20))
+    log(f"fabricated {CNV_SAMPLES} BAMs of {CNV_READS} reads on a {CNV_LEN} "
+        f"bp contig in {time.perf_counter() - t0:.1f} s")
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    runs, outs = {}, {}
+    for name, extra in (("device", ["--engine", "device"]), ("default", [])):
+        report = os.path.join(workdir, f"cnv_{name}.json")
+        vcf = os.path.join(workdir, f"cnv_{name}.vcf")
+        mat = os.path.join(workdir, f"cnv_{name}.cn.tsv")
+        r, wall = _run_cli(root, ["--metrics-out", report, "cnv", "-w",
+                                  str(CNV_WINDOW), "-r", fa, "--vcf", vcf,
+                                  "--matrix-out", mat, *extra, *bams], env)
+        if r.returncode != 0:
+            raise AssertionError(f"cnv ({name}) failed ({r.returncode}):\n"
+                                 f"{r.stderr[-4000:]}")
+        rep, cmd_s, stages = read_manifest(report, "cnv")
+        with open(vcf) as fh, open(mat) as mh:
+            outs[name] = (r.stdout, fh.read(), mh.read())
+        runs[name] = {"wall_s": wall, "command_s": cmd_s,
+                      "import_s": rep["import_seconds"],
+                      "stage_seconds": stages,
+                      "launches": rep["kernel_launches"],
+                      "native_io": rep["native_io"],
+                      "bases_per_s": CNV_SAMPLES * CNV_LEN / cmd_s}
+        log(f"cnv ({name} engine): process wall {wall:.3f} s, command "
+            f"{cmd_s:.3f} s, import {rep['import_seconds']:.3f} s; "
+            f"{CNV_SAMPLES * CNV_LEN / cmd_s / 1e6:.3f} Mbases/s "
+            f"({CNV_SAMPLES} samples x {CNV_LEN} bp); launches "
+            f"{rep['kernel_launches']}; stage seconds: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+    assert runs["device"]["launches"]["depth"] == CNV_SAMPLES, runs["device"]
+    # with the native library, auto picks the hybrid engine (no kernel)
+    assert runs["default"]["native_io"], runs["default"]
+    assert runs["default"]["launches"]["depth"] == 0, runs["default"]
+    buf = io.StringIO()
+    vcf = os.path.join(workdir, "cnv_cpu.vcf")
+    mat = os.path.join(workdir, "cnv_cpu.cn.tsv")
+    t0 = time.perf_counter()
+    calls = run_cnv(bams, reference=fa, window=CNV_WINDOW, out=buf,
+                    vcf_out=vcf, matrix_out=mat, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    with open(vcf) as fh, open(mat) as mh:
+        outs["cpu"] = (buf.getvalue(), fh.read(), mh.read())
+    for name in ("device", "default"):
+        for what, got, want in zip(("calls", "VCF", "CN matrix"),
+                                   outs[name], outs["cpu"]):
+            _diff_rows(f"cnv {what} ({name} engine on the card against the "
+                       "CPU)", got, want)
+    lo, hi, who = CNV_DEL
+    assert any(c[3] == f"cnv{who}" and c[1] < hi and c[2] > lo
+               and c[5] < -0.5 for c in calls), calls
+    lo, hi, who = CNV_DUP
+    assert any(c[3] == f"cnv{who}" and c[1] < hi and c[2] > lo
+               and c[5] > 0.3 for c in calls), calls
+    log(f"cnv: both engines byte-identical to run_cnv(device='cpu') "
+        f"({cpu_s:.3f} s on the host CPU): {len(calls)} calls, the planted "
+        f"deletion and duplication among them: "
+        + "; ".join(f"{c[3]} {c[1]}-{c[2]} CN {c[4]} log2FC {c[5]:.3f}"
+                    for c in calls if c[3] in (f"cnv{CNV_DEL[2]}",
+                                               f"cnv{CNV_DUP[2]}")))
+
+    matrix = os.path.join(workdir, "cnv.matrix.tsv")
+    mats, cd_launches = {}, {}
+    for name in ("hybrid", "device"):
+        report = os.path.join(workdir, f"cohortdepth_{name}.json")
+        r, _ = _run_cli(root, ["--metrics-out", report, "cohortdepth",
+                               "-w", str(CNV_WINDOW), "-r", fa,
+                               "--engine", name, *bams], env)
+        if r.returncode != 0:
+            raise AssertionError(f"cohortdepth ({name}) failed "
+                                 f"({r.returncode}):\n{r.stderr[-4000:]}")
+        mats[name] = r.stdout
+        cd_launches[name] = read_manifest(
+            report, "cohortdepth")[0]["kernel_launches"]["depth"]
+    assert cd_launches == {"hybrid": 0, "device": CNV_SAMPLES}, cd_launches
+    _diff_rows("cohortdepth window means (depth kernel against the hybrid "
+               "engine)", mats["device"], mats["hybrid"])
+    log(f"cohortdepth -w {CNV_WINDOW} on the same BAMs: --engine device "
+        f"({cd_launches['device']} depth launches) byte-identical to the "
+        f"hybrid engine over {len(mats['device'].splitlines()) - 1} "
+        f"windows x {CNV_SAMPLES} samples")
+    with open(matrix, "w") as fh:
+        fh.write(mats["hybrid"])
+    report = os.path.join(workdir, "emdepth.json")
+    files = {k: os.path.join(workdir, f"em_{k}.tsv") for k in
+             ("mops", "gain", "mops_cpu", "gain_cpu")}
+    r, wall = _run_cli(root, ["--metrics-out", report, "emdepth",
+                              "--mops-out", files["mops"], "--gain-out",
+                              files["gain"], matrix], env)
+    if r.returncode != 0:
+        raise AssertionError(f"emdepth failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, em_s, em_stages = read_manifest(report, "emdepth")
+    buf = io.StringIO()
+    run_emdepth(matrix, out=buf, mops_out=files["mops_cpu"],
+                gain_out=files["gain_cpu"], device="cpu")
+    _diff_rows("emdepth calls (card against CPU)", r.stdout, buf.getvalue())
+    for k in ("mops", "gain"):
+        with open(files[k]) as g, open(files[k + "_cpu"]) as c:
+            _diff_rows(f"emdepth --{k}-out (card against CPU)", g.read(),
+                       c.read())
+    n_win = CNV_LEN // CNV_WINDOW
+    log(f"emdepth --mops-out --gain-out on the cohortdepth matrix "
+        f"({n_win} windows x {CNV_SAMPLES} samples): card and CPU "
+        f"byte-identical; process wall {wall:.3f} s, command {em_s:.3f} s "
+        f"= {n_win * CNV_SAMPLES / em_s / 1e6:.4f} M window-samples/s; "
+        f"stage seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(em_stages.items())))
+    return {"runs": runs, "cpu_s": cpu_s, "calls": len(calls),
+            "cohortdepth_launches": cd_launches,
+            "emdepth": {"wall_s": wall, "command_s": em_s,
+                        "stage_seconds": em_stages,
+                        "window_samples_per_s":
+                            n_win * CNV_SAMPLES / em_s}}
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
@@ -2064,6 +2419,9 @@ def main(argv=None) -> int:
             co["hybrid"]["launches"]["rans"],
             {"cohort": co["hybrid"]["command_s"],
              "pairhmm": pe2e["command_s"]}, args.trace_dir)
+        results["em"] = em_phase(root, dev)
+        results["cnv_e2e"] = cnv = cnv_e2e_phase(root, workdir)
+        depth["cnv_launches"] = cnv["runs"]["device"]["launches"]["depth"]
         o0 = rres["ORDER0"]  # the cohort's most common codec
         rans.update(status="pass", launches=co["hybrid"]["launches"]["rans"],
                     max_abs_err=rres["max_abs_err"], ms=o0["ms"],

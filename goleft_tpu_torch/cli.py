@@ -61,10 +61,14 @@ def _lazy(module: str):
 
 
 PROGS = {
+    "cnv": ("CNV calls straight from BAMs: cohort depth matrix + EM copy "
+            "number on the CUDA card", _lazy(".commands.cnv")),
     "cohortdepth": ("windowed depth matrix for a cohort of BAM/CRAM files "
                     "on the CUDA card", _lazy(".commands.cohortdepth")),
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth")),
+    "emdepth": ("EM copy-number calls from a depth matrix on the CUDA card",
+                _lazy(".commands.emdepth_cmd")),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
 }

@@ -53,7 +53,7 @@ from ..io import remote
 from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
 from ..io.fai import read_fai, write_fai
-from ..ops.coverage import window_bounds
+from ..ops.coverage import window_bounds, window_count
 from ..utils.decode_scaling import auto_processes, effective_cores
 from ..utils.profiling import StageTimer
 from . import add_no_crc_flag, apply_no_crc
@@ -122,7 +122,9 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
     remaining shards. ``checkpoint`` (a CheckpointStore): each computed
     region's columns are committed after it is emitted, and a region
     whose every column is committed is restored from the store with no
-    decode and no launch. ``device``: the card unless ``"cpu"``."""
+    decode and no launch. Without a ``quarantine`` (``cnv``), a sample
+    that fails to open or fails permanently raises instead. ``device``:
+    the card unless ``"cpu"``."""
     device = resolve_device(device)
     fai_path = fai or (reference + ".fai" if reference else None)
     if fai_path is None:
@@ -155,6 +157,8 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
             try:
                 h, bai, nm = f.result()
             except (Exception, SystemExit) as e:  # noqa: BLE001
+                if quarantine is None:
+                    raise
                 base = b.rsplit("/", 1)[-1]
                 quarantine.add(("open", b), base.rsplit(".", 1)[0], b, e,
                                classification="permanent", phase="open")
@@ -210,7 +214,7 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
         c, s, e = region
         h, tid = handles[i], tid_maps[i].get(c, -1)
         w0 = s // window * window
-        n_win = (e - w0 + window - 1) // window
+        n_win = window_count(s, e, window)
 
         def fallback():
             return np.zeros(n_win, np.int64)
@@ -313,7 +317,7 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
         def commit(blk):
             vals = blk[3]
             return [(k, vals[i]) for i, k in enumerate(region_keys(r))
-                    if i not in quarantine]
+                    if quarantine is None or i not in quarantine]
 
         return Step(key=tuple(r), fn=lambda: next(it), site="shard",
                     retry=False,

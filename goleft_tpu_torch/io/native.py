@@ -59,34 +59,42 @@ def _build(src: str, out: str) -> bool:
 
 
 def get_lib() -> ctypes.CDLL | None:
-    """The loaded native library, or None (pure-Python fallback)."""
+    """The loaded native library, or None (pure-Python fallback).
+
+    ``_tried`` is set only once the outcome is in ``_lib``: a thread
+    that finds it set outside the lock sees the loaded library, never a
+    None left by another thread that is still building or loading it
+    (the sample threads of a cohort open their inputs at once)."""
     global _lib, _tried
-    if _lib is not None or _tried:
+    if _tried:
         return _lib
     with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        stale = not os.path.exists(LIB) or (
-            os.path.getmtime(SRC) > os.path.getmtime(LIB))
-        if stale and not _build(SRC, LIB):
-            return None
-        try:
-            lib = ctypes.CDLL(LIB)
-        except OSError as e:
-            # a library built on another host (copied build tree) may
-            # name shared objects this host lacks: build it here
-            if stale or not _build(SRC, LIB):
-                log.warning("native load failed: %s", e)
-                return None
-            lib = ctypes.CDLL(LIB)
-        for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
-                     "bam_decode", "bam_segments_stream", "bam_window_reduce",
-                     "bam_window_reduce_stream", "bam_window_acc_stream",
-                     "bai_scan", "format_depth_rows", "format_class_rows"):
-            getattr(lib, name).restype = ctypes.c_long
-        _lib = lib
+        if not _tried:
+            _lib = _load()
+            _tried = True
         return _lib
+
+
+def _load() -> ctypes.CDLL | None:
+    stale = not os.path.exists(LIB) or (
+        os.path.getmtime(SRC) > os.path.getmtime(LIB))
+    if stale and not _build(SRC, LIB):
+        return None
+    try:
+        lib = ctypes.CDLL(LIB)
+    except OSError as e:
+        # a library built on another host (copied build tree) may
+        # name shared objects this host lacks: build it here
+        if stale or not _build(SRC, LIB):
+            log.warning("native load failed: %s", e)
+            return None
+        lib = ctypes.CDLL(LIB)
+    for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
+                 "bam_decode", "bam_segments_stream", "bam_window_reduce",
+                 "bam_window_reduce_stream", "bam_window_acc_stream",
+                 "bai_scan", "format_depth_rows", "format_class_rows"):
+        getattr(lib, name).restype = ctypes.c_long
+    return lib
 
 
 def _as_u8(data) -> np.ndarray:

@@ -1,6 +1,6 @@
 """CNV candidate intervals: the counterpart of the JAX package's
 models/candidates.py, trimmed to what ``pairhmm --candidates`` reads
-(and the writer the tests use).
+and what ``emdepth --candidates-out`` writes.
 
   - ``*.json``: ``{"schema": "goleft-tpu.cnv-candidates/1",
     "source": "<tool>", "candidates": [{chrom, start, end, sample, cn,
@@ -104,3 +104,11 @@ def overlaps_any(candidates, chrom: str, start: int, end: int) -> bool:
     """True when [start, end) on chrom overlaps any candidate."""
     return any(c["chrom"] == chrom and c["start"] < end
                and start < c["end"] for c in candidates)
+
+
+def candidates_from_calls(results) -> list[dict]:
+    """emdepth CNV-call tuples (chrom, start, end, sample, CN, log2FC),
+    what ``call_cnvs`` returns, to candidate records."""
+    return [{"chrom": c, "start": s, "end": e, "sample": smp,
+             "cn": cn, "log2fc": fc}
+            for c, s, e, smp, cn, fc in results]

@@ -104,12 +104,18 @@ def windowed_sums(depth: torch.Tensor, length: int, window: int,
     return padded.to(torch.int64).reshape(-1, window).sum(dim=1)
 
 
+def window_count(region_start: int, region_end: int, window: int) -> int:
+    """The absolute-aligned windows that overlap a region."""
+    w0 = region_start // window * window
+    return (region_end - w0 + window - 1) // window
+
+
 def window_bounds(
     region_start: int, region_end: int, window: int
 ) -> tuple[np.ndarray, np.ndarray, int, int]:
     """(starts, ends, lpad, rpad) for absolute-aligned windows over a region."""
     w0 = region_start // window * window
-    n_win = (region_end - w0 + window - 1) // window
+    n_win = window_count(region_start, region_end, window)
     starts = np.maximum(region_start, w0 + np.arange(n_win) * window)
     ends = np.minimum(region_end, w0 + (np.arange(n_win) + 1) * window)
     lpad = region_start - w0

@@ -1,5 +1,6 @@
 """The CUDA kernels (depth, pair-HMM, rANS-Nx16) against their plain
-PyTorch versions, on a card.
+PyTorch versions, and the EM copy-number caller and cn.mops against
+their CPU path, on a card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch, without the suite's conftest:
@@ -363,3 +364,63 @@ def test_dispatch_fences_the_launching_threads_stream():
     assert default_busy, "the fence must not wait on other streams"
     assert spans[1].duration() < 0.5, spans[1].duration()
     tracer.clear()
+
+
+def _em_matrix(rng, B=300, S=40):
+    d = rng.poisson(30, size=(B, S)).astype(np.float64)
+    d[40:60, 3] *= 0.5
+    d[100:130, 7] = 0
+    d[200:220, 11] *= 1.5
+    d[250, 5] = 900.0  # above λ8: CN 8
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 10**9])
+def test_em_on_card_equals_cpu(monkeypatch, chunk):
+    """_batched_em on the card (whole chunks and one batch) against the
+    CPU path: λ within 1e-9, CN equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.commands import emdepth_cmd as ec
+
+    d = _em_matrix(np.random.default_rng(8))
+    med, medmed = ec.sample_medians(d)
+    monkeypatch.setattr(ec, "EM_CHUNK", chunk)
+    lam_g, cn_g = ec._batched_em(d, med, medmed, device="cuda")
+    lam_c, cn_c = ec._batched_em(d, med, medmed, device="cpu")
+    np.testing.assert_allclose(lam_g, lam_c, rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(cn_g, cn_c)
+    assert cn_g[250, 5] == 8
+
+
+@pytest.mark.cuda
+def test_norm_chunk_on_card_equals_host():
+    """The int16 rows scaled on the card equal numpy's ``v / med *
+    medmed`` on the host bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.commands import emdepth_cmd as ec
+
+    d = _em_matrix(np.random.default_rng(10)).astype(np.int16)
+    med, medmed = ec.sample_medians(d)
+    got = ec._norm_chunk(d, med, medmed, np.float64, "cuda")
+    np.testing.assert_array_equal(got.cpu().numpy(), d / med * medmed)
+
+
+@pytest.mark.cuda
+def test_mops_on_card_equals_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.models import mops
+
+    d = torch.from_numpy(_em_matrix(np.random.default_rng(9)))
+    g = mops.mops_batch(d.cuda())
+    c = mops.mops_batch(d)
+    for key in ("aik", "alpha", "lambda"):
+        np.testing.assert_allclose(g[key].cpu().numpy(), c[key].numpy(),
+                                   rtol=1e-9, atol=1e-9, err_msg=key)
+    assert torch.equal(mops.posterior_cn(g["aik"]).cpu(),
+                       mops.posterior_cn(c["aik"]))
+    np.testing.assert_allclose(mops.information_gain(g["aik"]).cpu(),
+                               mops.information_gain(c["aik"]), rtol=1e-9)

@@ -31,7 +31,7 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
-                 "cohort_bench.py", "flags_bench.py"):
+                 "cohort_bench.py", "flags_bench.py", "em_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -168,6 +168,94 @@ def test_cpu_cohortdepth_run_loads_no_jax(tmp_path):
     assert "RC 0 ROWS ['#chrom\\tstart\\tend\\ts0\\ts1', " \
         "'chr1\\t0\\t100\\t6\\t5']" in r.stdout, r.stdout
     assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_cpu_emdepth_run_loads_no_jax(tmp_path):
+    """A depth matrix through the port's emdepth with every output, on
+    the CPU, in a fresh interpreter; then neither jax nor goleft_tpu is
+    loaded."""
+    script = textwrap.dedent(f"""
+        import io, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.commands.emdepth_cmd import run_emdepth
+        d = {str(tmp_path)!r}
+        rng = np.random.default_rng(0)
+        m = rng.gamma(40, 1.0, size=(60, 8)).round(1)
+        m[20:30, 3] *= 0.25
+        with open(d + "/m.tsv", "w") as fh:
+            fh.write("#chrom\\tstart\\tend\\t"
+                     + "\\t".join(f"s{{i}}" for i in range(8)) + "\\n")
+            for w in range(60):
+                fh.write(f"chr1\\t{{w * 1000}}\\t{{w * 1000 + 1000}}\\t"
+                         + "\\t".join(str(v) for v in m[w]) + "\\n")
+        buf = io.StringIO()
+        calls = run_emdepth(d + "/m.tsv", out=buf, matrix_out=d + "/cn.tsv",
+                            vcf_out=d + "/c.vcf.gz", mops_out=d + "/mops.tsv",
+                            gain_out=d + "/gain.tsv",
+                            candidates_out=d + "/c.json", device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("S3", [c[1:5] for c in calls if c[3] == "s3"])
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "S3 [(0, 30000, 's3', 1)]" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+    for f in ("cn.tsv", "c.vcf.gz", "mops.tsv", "gain.tsv", "c.json"):
+        assert (tmp_path / f).stat().st_size > 0, f
+
+
+def test_cpu_cnv_run_loads_no_jax(tmp_path):
+    """Four BAMs written with the port's BamWriter, one with a deletion,
+    through the port's cnv on the device engine on the CPU, in a fresh
+    interpreter; then neither jax nor goleft_tpu is loaded."""
+    script = textwrap.dedent(f"""
+        import io, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.commands.cnv import run_cnv
+        from goleft_tpu_torch.io.bai import build_bai, write_bai
+        from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+        d = {str(tmp_path)!r}
+        with open(d + "/r.fa", "w") as fh:
+            fh.write(">chr1\\n" + "ACGT" * 10000 + "\\n")
+        rng = np.random.default_rng(1)
+        paths = []
+        for k in range(4):
+            hdr = ("@HD\\tVN:1.6\\tSO:coordinate\\n@SQ\\tSN:chr1\\tLN:40000\\n"
+                   f"@RG\\tID:r\\tSM:s{{k}}\\n")
+            pos = np.sort(rng.integers(0, 39900, 3000))
+            if k == 2:
+                pos = pos[(pos < 10000) | (pos >= 20000)]
+            p = f"{{d}}/s{{k}}.bam"
+            with open(p, "wb") as fh:
+                with BamWriter(fh, hdr, ["chr1"], [40000]) as w:
+                    for i, s in enumerate(pos):
+                        w.write_record(0, int(s), parse_cigar("100M"),
+                                       name=f"r{{i}}")
+            write_bai(build_bai(p), p + ".bai")
+            paths.append(p)
+        buf = io.StringIO()
+        calls = run_cnv(paths, reference=d + "/r.fa", window=1000, out=buf,
+                        engine="device", vcf_out=d + "/c.vcf", device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("S2", [c[3] for c in calls if c[1] < 20000 and c[2] > 10000])
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "S2 ['s2']" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+    assert "<DEL>" in (tmp_path / "c.vcf").read_text()
 
 
 def test_cpu_trace_out_run_loads_no_jax(tmp_path):
@@ -312,6 +400,7 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
 
 
 def test_cli_lists_depth():
-    assert sorted(cli.PROGS) == ["cohortdepth", "depth", "pairhmm"]
+    assert sorted(cli.PROGS) == ["cnv", "cohortdepth", "depth", "emdepth",
+                                 "pairhmm"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
