@@ -6,10 +6,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py [--out FILE] [--trace-dir DIR]
 
 1. prints the card's provenance (torch / CUDA versions, name, power limit);
-2. builds the hand-written kernels (csrc/depth_kernel.cu,
-   csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu) from the checkout, one
-   nvcc each, started together, and prints the build seconds and the
-   ptxas reports;
+2. builds the four hand-written kernels (csrc/depth_kernel.cu,
+   csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu, csrc/indexcov_norm.cu)
+   from the checkout, one nvcc each, started together, and prints the
+   build seconds and the ptxas reports;
 3. holds the depth kernel against its plain PyTorch version on the card at
    one full production shard (10 Mb, 2,000,000 segments of 150 bp, window
    250, max mean depth 100, cap 2600), on both wires and on the u16 wire
@@ -115,7 +115,28 @@ Run from the root of a checkout, on a machine with one CUDA card:
    hybrid engine's; then ``emdepth --mops-out --gain-out`` on that
    matrix, on the card against the CPU (the differing windows are
    printed on a failure); prints samples x contig bp a second;
-13. prints the kernels line, the card's ``nvidia-smi`` name and power
+13. holds indexcov's normalisation kernel (csrc/indexcov_norm.cu)
+   against its plain version on the card, bitwise: 2,504 samples (the
+   1000 Genomes phase-3 cohort) x 15,195 bins (chr1 at 16 KB), samples
+   ending 1-5 bins early, a length-0 sample, a run of m < 0.1 bins, the
+   scalars from the port's NormStats; then NORM_EDGES (lanes of length
+   0-8 and ending 0-5 bins early, widths 1, 3 and 7, non-zero padding,
+   every skip of NormStats, a 5-sample cohort); prints the kernel's time
+   (CUDA events, median of 20), the plain version's and the bytes bound;
+14. fabricates 500 whole-genome .bai files (hg38's 24 chromosomes at
+   their GRCh38 lengths, 188,457 bins a sample, sex planted) with an
+   .fai, and runs ``python -m goleft_tpu_torch indexcov`` in fresh
+   processes: run A, the first 30 samples with the default flags and
+   the reports, against a numpy oracle from the raw indexes (bed.gz,
+   CN of chrX and chrY, bin counters, sex) and the port's CPU path
+   (byte-identical but the PCA columns and charts, equal up to sign);
+   run B, all 500 with ``-n --no-html`` (22 indexcov_norm launches), its
+   chr21 rows of bed.gz and ROC against the CPU path's ``-c chr21 -n``;
+   a 30-sample ``-n`` run killed by ``shard:after=5:kill``, resumed
+   (byte-identical to an uninterrupted run, fewer launches) and resumed
+   again (0 launches); prints each run's seconds, import seconds, seven
+   stage totals and samples/s;
+15. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -2320,6 +2341,662 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
                             n_win * CNV_SAMPLES / em_s}}
 
 
+# ---- indexcov phases: the normalisation kernel, then the command -------
+
+#: hg38's 24 primary chromosomes at their GRCh38 lengths (3.09 Gb)
+HG38 = (("chr1", 248_956_422), ("chr2", 242_193_529), ("chr3", 198_295_559),
+        ("chr4", 190_214_555), ("chr5", 181_538_259), ("chr6", 170_805_979),
+        ("chr7", 159_345_973), ("chr8", 145_138_636), ("chr9", 138_394_717),
+        ("chr10", 133_797_422), ("chr11", 135_086_622),
+        ("chr12", 133_275_309), ("chr13", 114_364_328),
+        ("chr14", 107_043_718), ("chr15", 101_991_189),
+        ("chr16", 90_338_345), ("chr17", 83_257_441), ("chr18", 80_373_285),
+        ("chr19", 58_617_616), ("chr20", 64_444_167), ("chr21", 46_709_983),
+        ("chr22", 50_818_468), ("chrX", 156_040_895), ("chrY", 57_227_415))
+IC_TILE = 16384
+#: the kernel phase's main case: the 1000 Genomes phase-3 cohort x chr1 at
+#: 16 KB
+NORM_SAMPLES = 2_504
+NORM_BINS = 15_195
+#: run A (the reference's headline: 30 samples, reports), run B (cohort
+#: scale, -n), the kill-and-resume runs (30 samples, -n)
+IC_HEADLINE = 30
+IC_SAMPLES = 500
+IC_KILL = "shard:after=5:kill"
+IC_STAGES = ("index_load", "qc_launch", "qc_fetch", "bed_gz", "roc",
+             "plots", "pca_ped_html")
+#: PCA columns and charts hold per component, up to sign, within this
+#: share of the component's largest projection (float32 SVDs of two
+#: libraries, %.2f of a 0..65535-scaled matrix)
+PCA_RTOL = 1e-4
+#: where the spectrum is known, component k's share is K * eps32 *
+#: sigma_1 / gap_k (gap_k: sigma_k's distance to its nearest singular
+#: value): two backward-stable float32 SVDs agree on the k-th right
+#: singular vector within about eps * sigma_1 / gap_k (Davis-Kahan),
+#: here with K for the growth of the solvers' backward error. A cohort
+#: without structure has nearly equal singular values, so its
+#: components are that ill-conditioned.
+PCA_GROWTH = 64
+
+
+def _norm_scalars(depths, lengths):
+    """The port's pass-1 scalars (host f64 NormStats) of a cohort."""
+    from goleft_tpu_torch.cohort.streaming import NormStats
+
+    st = NormStats()
+    st.accumulate(depths, lengths)
+    return st.finalize(depths.shape[1])
+
+
+def _zero_tails(depths, lengths):
+    depths[np.arange(depths.shape[1])[None, :] >= lengths[:, None]] = 0
+    return depths
+
+
+def norm_main_case(rng, n: int = NORM_SAMPLES, b: int = NORM_BINS):
+    """(depths, lengths, m, skip) of chr1 at 16 KB for n samples: samples
+    ending 1-5 bins early (the last bins fall under the live-sample
+    floor and are skipped), a length-0 sample, a run of m < 0.1 bins; m
+    and skip from the port's NormStats, as on the main path."""
+    lengths = np.full(n, b, np.int32)
+    lengths[1:6] = b - np.arange(1, 6)
+    lengths[6] = 0
+    depths = rng.gamma(8.0, 1 / 8, size=(n, b)).astype(np.float32)
+    depths[:, 1000:1012] *= np.float32(1e-3)
+    _zero_tails(depths, lengths)
+    m, skip = _norm_scalars(depths, lengths)
+    assert skip[1002:1010].all() and skip[-5:].all() and not skip[500]
+    return depths, lengths, m, skip
+
+
+def _norm_synthetic(rng, n, b, lengths, pad=0.0):
+    """Any (m, skip): the kernel is a function of them, so an edge case
+    may smooth bins the reference's floor would skip."""
+    depths = rng.gamma(4.0, 0.25, size=(n, b)).astype(np.float32)
+    if pad == 0.0:
+        _zero_tails(depths, lengths)
+    m = rng.uniform(0.5, 1.5, size=b).astype(np.float32)
+    skip = rng.random(b) < 0.1
+    return depths, lengths.astype(np.int32), m, skip
+
+
+def _norm_short_lanes(rng):
+    b = 300
+    lengths = np.r_[np.arange(0, 9), b - np.arange(0, 6),
+                    rng.integers(0, b + 1, 23)]
+    return _norm_synthetic(rng, lengths.size, b, lengths)
+
+
+def _norm_width(b):
+    def case(rng):
+        return _norm_synthetic(rng, 9, b, np.arange(9) % (b + 1))
+    return case
+
+
+def _norm_nonzero_padding(rng):
+    lengths = rng.integers(0, 200, 40)
+    return _norm_synthetic(rng, 40, 200, lengths, pad=1.0)
+
+
+def _norm_skip_runs(rng):
+    """NormStats scalars with every skip: low-coverage runs, and two short
+    samples that put the tail under the live-sample floor."""
+    n, b = 64, 2000
+    lengths = np.full(n, b, np.int32)
+    lengths[3], lengths[9] = 1500, 1700
+    depths = rng.gamma(8.0, 1 / 8, size=(n, b)).astype(np.float32)
+    depths[:, 100:130] *= np.float32(1e-3)
+    depths[:, 700:703] *= np.float32(0.05)
+    _zero_tails(depths, lengths)
+    m, skip = _norm_scalars(depths, lengths)
+    assert skip[102:128].all() and skip[1700:].all() and not skip[50]
+    return depths, lengths, m, skip
+
+
+def _norm_five_samples(rng):
+    n, b = 5, 3000
+    lengths = np.array([b, b - 2, b, 2400, b], np.int32)
+    depths = rng.gamma(8.0, 1 / 8, size=(n, b)).astype(np.float32)
+    _zero_tails(depths, lengths)
+    return (depths, lengths) + _norm_scalars(depths, lengths)
+
+
+#: edge cases of the normalisation kernel: (name → rng → depths, lengths,
+#: m, skip), held bitwise against the plain version on the card here and
+#: in tests/test_torch_cuda.py, and against the reference's order in
+#: tests/test_torch_indexcov_norm.py on the CPU
+NORM_EDGES = {
+    "short_lanes": _norm_short_lanes,
+    "width_1": _norm_width(1),
+    "width_3": _norm_width(3),
+    "width_7": _norm_width(7),
+    "nonzero_padding": _norm_nonzero_padding,
+    "skip_runs": _norm_skip_runs,
+    "five_samples": _norm_five_samples,
+}
+
+
+def norm_edge_case(name: str):
+    return NORM_EDGES[name](np.random.default_rng(
+        sum(map(ord, name))))
+
+
+def _bits_equal(got, want) -> bool:
+    import torch
+
+    return got.shape == want.shape and torch.equal(
+        got.view(torch.int32), want.view(torch.int32))
+
+
+def norm_kernel_phase(dev) -> dict:
+    """indexcov_norm against its plain version on the card, bitwise, at
+    2,504 samples x 15,195 bins and on NORM_EDGES; the kernel's time
+    (CUDA events, median of 20), the plain version's (median of 3) and
+    the bytes bound."""
+    import torch
+
+    from goleft_tpu_torch.ops import norm_kernel as nk
+
+    def on_card(case):
+        d, ln, m, skip = case
+        return (torch.from_numpy(np.ascontiguousarray(d)).to(dev),
+                torch.from_numpy(ln.astype(np.int32)).to(dev),
+                torch.from_numpy(m).to(dev), torch.from_numpy(skip).to(dev))
+
+    for name in sorted(NORM_EDGES):
+        t = on_card(norm_edge_case(name))
+        got = nk.norm_scan(*t)
+        want = nk.apply_normalization_plain(*t)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), f"indexcov_norm edge case {name}"
+    t0 = time.perf_counter()
+    main = norm_main_case(np.random.default_rng(2504))
+    fab_s = time.perf_counter() - t0
+    t = on_card(main)
+    got = nk.norm_scan(*t)
+    want = nk.apply_normalization_plain(*t)
+    torch.cuda.synchronize()
+    assert _bits_equal(got, want), "indexcov_norm at 2,504 x 15,195"
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    ms = cuda_median_ms(lambda: nk.norm_scan(*t), reps=20)
+    plain_ms = cuda_median_ms(lambda: nk.apply_normalization_plain(*t),
+                              reps=3)
+    n, b = main[0].shape
+    # each input read once, each output written once
+    nbytes = 2 * n * b * 4 + n * 4 + b * 4 + b
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"indexcov_norm: bitwise equal to its plain version on "
+        f"{len(NORM_EDGES)} edge cases and at {n} samples x {b} bins "
+        f"(ragged, fabricated in {fab_s:.1f} s); kernel {ms:.4f} ms "
+        f"(CUDA events, median of 20), plain version on the card "
+        f"{plain_ms:.1f} ms (median of 3), bound {bound_ms:.4f} ms "
+        f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+        f"{bound_ms / ms:.3f} of the bound")
+    return {"samples": n, "bins": b, "edge_cases": sorted(NORM_EDGES),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "bytes": nbytes, "max_abs_err": err}
+
+
+def indexcov_fabricate(d: str, n_ix: int, rng, contigs=HG38):
+    """Whole-genome .bai files and a ref.fa.fai into ``d``: a copy of
+    bench.py's ``_fabricate_bai_cohort`` with sex planted (the chrX and
+    chrY deltas halved for even samples, chrY deltas near zero for odd
+    ones) → (sorted .bai paths, fai path)."""
+    import struct
+
+    fai = os.path.join(d, "ref.fa.fai")
+    with open(fai, "w") as fh:
+        for name, ln in contigs:
+            fh.write(f"{name}\t{ln}\t6\t60\t61\n")
+    for s in range(n_ix):
+        male = s % 2 == 0
+        blob = bytearray(b"BAI\x01") + struct.pack("<i", len(contigs))
+        for name, ln in contigs:
+            n_t = ln // IC_TILE
+            blob += struct.pack("<i", 1)
+            blob += struct.pack("<Ii", 0x924A, 2)
+            blob += struct.pack("<QQ", 0, 0)
+            blob += struct.pack("<QQ", 40_000_000, 80_000)
+            base = int(rng.integers(0, 1 << 30))
+            deltas = rng.integers(20_000, 60_000, size=n_t).astype(np.int64)
+            if name in ("chrX", "chrY") and male:
+                deltas //= 2
+            elif name == "chrY":
+                deltas //= 1000
+            ivs = ((base + np.cumsum(deltas)).astype(np.uint64)
+                   * np.uint64(1 << 16))
+            blob += struct.pack("<i", n_t) + ivs.astype("<u8").tobytes()
+        blob += struct.pack("<Q", 0)
+        with open(os.path.join(d, f"s{s:03d}.bai"), "wb") as fh:
+            fh.write(bytes(blob))
+    return sorted(os.path.join(d, f) for f in os.listdir(d)
+                  if f.endswith(".bai")), fai
+
+
+def _fab_sizes(path: str, n_ref: int) -> list:
+    """The oracle's own reading of a fabricated .bai (one stats bin a
+    reference): the per-tile linear-index voffset deltas."""
+    data = open(path, "rb").read()
+    off, out = 8, []
+    for _ in range(n_ref):
+        off += 4 + 8 + 32  # n_bin, the stats bin's header and 2 chunks
+        n = int(np.frombuffer(data, "<i4", 1, off)[0])
+        iv = np.frombuffer(data, "<u8", n, off + 4).astype(np.int64)
+        out.append(np.diff(iv))
+        off += 4 + 8 * n
+    return out
+
+
+def _oracle_cn(d) -> float:
+    """GetCN (indexcov.go:957-991) in numpy."""
+    nz = np.sort(d[d != 0])
+    if nz.size == 0:
+        return float(np.float32(-0.1))
+    lows = int((nz < np.float32(0.02)).sum())
+    if lows / d.size > 0.3:
+        nz = nz[lows:]
+    if nz.size == 0:
+        return 0.0
+    return float(np.float32(2) * nz[(2 * nz.size) // 5])
+
+
+def indexcov_oracle(bais, contigs=HG38) -> dict:
+    """From the raw indexes: per-sample median by capped cumsum, float32
+    scaled depth, the bed.gz body ("%.3g"), the ped's CN of chrX and chrY,
+    the autosome bin counters, and the PCA of the autosomes' quantized
+    depths in float64 with each component's tolerance (pca_tolerances)
+    → {"bed", "cn", "counters", "pcs", "pca_rtol"}."""
+    depths = []
+    for p in bais:
+        sizes = _fab_sizes(p, len(contigs))
+        flat = np.sort(np.concatenate(sizes))
+        cum = np.cumsum(np.minimum(flat, flat[int(0.98 * len(flat))]))
+        idx = int(np.searchsorted(cum, int(cum[-1]) // 2, side="right"))
+        med = float(flat[min(idx, len(flat) - 1)])
+        depths.append([np.minimum((s.astype(np.float64) / med).astype(
+            np.float32), np.float32(50000)) for s in sizes])
+    body = []
+    cn = {}
+    cnt = {k: np.zeros(len(bais), np.int64) for k in ("in", "out", "hi",
+                                                      "lo")}
+    lo85, hi115 = np.float32(0.85), np.float32(1.15)
+    quantized = []
+    for ci, (name, _) in enumerate(contigs):
+        mat = np.stack([d[ci] for d in depths])  # equal lengths here
+        cells = np.char.mod("%.3g", mat.T)
+        starts = np.arange(mat.shape[1], dtype=np.int64) * IC_TILE
+        body += [f"{name}\t{s}\t{s + IC_TILE}\t" + "\t".join(c) + "\n"
+                 for s, c in zip(starts.tolist(), cells.tolist())]
+        if name in ("chrX", "chrY"):
+            cn[name] = ["%.2f" % _oracle_cn(r) for r in mat]
+        else:
+            cnt["in"] += ((mat >= lo85) & (mat <= hi115)).sum(axis=1)
+            cnt["out"] += ((mat < lo85) | (mat > hi115)).sum(axis=1)
+            cnt["hi"] += (mat > hi115).sum(axis=1)
+            cnt["lo"] += (mat < np.float32(0.15)).sum(axis=1)
+            # PCA input: capped at CN 8, uint16 quantized (indexcov.go:698)
+            capped = np.minimum(mat, np.float32(8.0))
+            quantized.append((np.float32(65535.0 / 8.0) * capped
+                              + np.float32(0.5)).astype(np.uint16))
+    x = np.concatenate(quantized, axis=1).astype(np.float64)
+    k = min(5, len(bais))
+    _, _, vt = np.linalg.svd(x - x.mean(axis=0), full_matrices=False)
+    return {"bed": "".join(body), "cn": cn, "counters": cnt,
+            "pcs": x @ vt[:k].T, "pca_rtol": pca_tolerances(x, k)}
+
+
+def _pc_columns(header):
+    import re
+
+    return [i for i, c in enumerate(header) if re.fullmatch(r"PC\d", c)]
+
+
+def pca_tolerances(mat, k: int) -> list:
+    """Per-component shares (see PCA_GROWTH) from the float64 singular
+    values of ``mat``'s column-centred copy, never below PCA_RTOL."""
+    x = np.asarray(mat, np.float64)
+    sv = np.linalg.svd(x - x.mean(axis=0), compute_uv=False)
+    eps = float(np.finfo(np.float32).eps)
+    out = []
+    for i in range(k):
+        gap = min(abs(sv[i] - sv[j]) for j in range(len(sv)) if j != i)
+        out.append(max(PCA_RTOL, PCA_GROWTH * eps * sv[0] / max(gap, 1e-30)))
+    return out
+
+
+def _per_component(rtol, n: int) -> list:
+    return [float(rtol)] * n if np.ndim(rtol) == 0 else list(rtol)
+
+
+def pcs_up_to_sign(got, want, what: str, rtol=PCA_RTOL) -> list:
+    """Per component up to sign, within ``rtol`` (one share, or one a
+    component) of the component's largest projection (and the 0.01 of a
+    %.2f) → each component's error over its scale. A component past the
+    centred matrix's rank (n - 1 for n samples) projects onto a
+    null-space vector each SVD picks for itself: every sample gets the
+    same value, so there both columns must be constant."""
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    tols = _per_component(rtol, want.shape[1])
+    errs = []
+    for j in range(want.shape[1]):
+        if np.ptp(want[:, j]) <= 0.02:
+            assert np.ptp(got[:, j]) <= 0.02, (what, j, got[:, j])
+            errs.append(0.0)
+            continue
+        scale = max(float(np.abs(want[:, j]).max()), 1.0)
+        err = min(np.abs(got[:, j] - want[:, j]).max(),
+                  np.abs(got[:, j] + want[:, j]).max())
+        assert err <= tols[j] * scale + 0.01, (what, j, err, scale, tols[j])
+        errs.append(err / scale)
+    return errs
+
+
+def ped_pcs(path: str) -> np.ndarray:
+    """The PC columns of a .ped, (samples, components)."""
+    with open(path) as fh:
+        rows = [line.rstrip("\n").split("\t") for line in fh]
+    pcs = _pc_columns(rows[0])
+    return np.array([[float(r[i]) for i in pcs] for r in rows[1:]])
+
+
+def _compare_ped(want_path: str, got_path: str, rtol=PCA_RTOL) -> None:
+    with open(want_path) as fh:
+        want = [line.rstrip("\n").split("\t") for line in fh]
+    with open(got_path) as fh:
+        got = [line.rstrip("\n").split("\t") for line in fh]
+    assert got[0] == want[0] and len(got) == len(want), got_path
+    pcs = _pc_columns(want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert [v for i, v in enumerate(g) if i not in pcs] == \
+            [v for i, v in enumerate(w) if i not in pcs], (g[:3], w[:3])
+    if pcs:
+        pcs_up_to_sign([[float(r[i]) for i in pcs] for r in got[1:]],
+                       [[float(r[i]) for i in pcs] for r in want[1:]],
+                       "ped PCs", rtol)
+
+
+def _pca_charts(page: str):
+    """index.html with the pca12/pca13 charts cut out → (the rest, {chart:
+    (points (n, 2), axis labels)})."""
+    import re
+
+    charts, lines = {}, []
+    for line in page.split("\n"):
+        m = re.search(r'getElementById\("(pca1[23])"\)', line)
+        if m:
+            pts = re.findall(r'\{"x": (-?[0-9.e+-]+), "y": (-?[0-9.e+-]+)\}',
+                             line)
+            labels = re.findall(r'"labelString": "([^"]*)"', line)
+            charts[m.group(1)] = (np.array(pts, float), labels)
+            continue
+        lines.append(line)
+    rest = re.sub(r'<div class="chartbox"><canvas id="pca1[23]"[^<]*'
+                  r"</canvas></div>", "", "\n".join(lines))
+    return rest, charts
+
+
+def _compare_index_html(want_path: str, got_path: str,
+                        rtol=PCA_RTOL) -> None:
+    import re
+
+    with open(want_path) as fh:
+        want_rest, want = _pca_charts(fh.read())
+    with open(got_path) as fh:
+        got_rest, got = _pca_charts(fh.read())
+    _same_bytes("index.html without its PCA charts", got_rest, want_rest)
+    assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+    tols = _per_component(rtol, 3)
+    for name in want:
+        # pca12 plots PC1 against PC2, pca13 PC1 against PC3
+        pcs_up_to_sign(got[name][0], want[name][0], name,
+                       [tols[0], tols[int(name[-1]) - 1]])
+        for gl, wl in zip(got[name][1], want[name][1]):
+            assert gl.split(" (")[0] == wl.split(" (")[0], (gl, wl)
+            gv = re.findall(r"\(([0-9.]+)% variance\)", gl)
+            wv = re.findall(r"\(([0-9.]+)% variance\)", wl)
+            assert len(gv) == len(wv), (gl, wl)
+            for a, b in zip(gv, wv):
+                assert abs(float(a) - float(b)) <= 0.1 + 1e-9, (gl, wl)
+
+
+def compare_indexcov_dirs(want: str, got: str, skip=None,
+                          pca_rtol=PCA_RTOL) -> dict:
+    """Every output of two indexcov runs (both directories named alike:
+    the page titles and file names carry the name): byte-identical (the
+    .bed.gz decompressed) but the .ped's PC columns and index.html's
+    pca12/pca13 charts, which hold per component up to sign within
+    ``pca_rtol`` (one share, or one a component); files whose name
+    ``skip`` matches are left out → {"files", "png"}."""
+    import gzip
+
+    names = sorted(os.listdir(want))
+    assert sorted(os.listdir(got)) == names, (names, os.listdir(got))
+    for f in names:
+        if skip is not None and skip.search(f):
+            continue
+        a, b = os.path.join(want, f), os.path.join(got, f)
+        if f.endswith(".ped"):
+            _compare_ped(a, b, pca_rtol)
+        elif f == "index.html":
+            _compare_index_html(a, b, pca_rtol)
+        else:
+            with open(a, "rb") as fa, open(b, "rb") as fb:
+                da, db = fa.read(), fb.read()
+            if f.endswith(".gz"):
+                da, db = gzip.decompress(da), gzip.decompress(db)
+            assert da == db, f"{f} differs"
+    return {"files": len(names),
+            "png": sum(f.endswith(".png") for f in names)}
+
+
+def _ic_summary(name, rep, cmd_s, stages, wall, n):
+    # the bed.gz rows and chart points go through csrc/fastio.cpp
+    assert rep["native_io"], f"indexcov {name}: no native library"
+    st = {k: stages.get(k, 0.0) for k in IC_STAGES}
+    log(f"indexcov {name}: {n} samples; process wall {wall:.3f} s, command "
+        f"{cmd_s:.3f} s = {n / cmd_s:.2f} samples/s, import "
+        f"{rep['import_seconds']:.3f} s; indexcov_norm launches "
+        f"{rep['kernel_launches']['indexcov_norm']}; stage seconds: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in st.items()))
+    return {"wall_s": wall, "command_s": cmd_s,
+            "import_s": rep["import_seconds"], "stage_seconds": st,
+            "samples_per_s": n / cmd_s,
+            "launches": rep["kernel_launches"]["indexcov_norm"]}
+
+
+def _rows_of(path: str, chrom: str) -> str:
+    """The ``chrom`` rows of a (bed.gz or text) table, in order."""
+    import gzip
+
+    opener = gzip.open if path.endswith(".gz") else open
+    out, seen = [], False
+    with opener(path, "rt") as fh:
+        for line in fh:
+            if line.startswith(chrom + "\t"):
+                out.append(line)
+                seen = True
+            elif seen:
+                break
+    assert out, f"no {chrom} rows in {path}"
+    return "".join(out)
+
+
+def _ic_bytes(outdir: str) -> dict:
+    return {f: open(os.path.join(outdir, f), "rb").read()
+            for f in sorted(os.listdir(outdir))}
+
+
+def indexcov_phase(root: str, workdir: str) -> dict:
+    """``python -m goleft_tpu_torch indexcov`` on fabricated hg38 .bai
+    files in fresh processes (launch counts from --metrics-out): run A,
+    30 samples with the reports, against a numpy oracle and the port's
+    CPU path; run B, 500 samples with -n (22 indexcov_norm launches),
+    its chr21 rows against the CPU path's -c chr21 -n; a 30-sample -n
+    run killed by shard:after=5:kill, resumed (the same bytes, fewer
+    launches) and resumed again (0 launches)."""
+    import torch
+
+    from goleft_tpu_torch.commands.indexcov import run_indexcov
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    assert not torch.backends.cuda.matmul.allow_tf32
+    d = os.path.join(workdir, "indexcov")
+    os.makedirs(d)
+    t0 = time.perf_counter()
+    bais, fai = indexcov_fabricate(d, IC_SAMPLES, np.random.default_rng(48))
+    n_bins = sum(ln // IC_TILE - 1 for _, ln in HG38)
+    fab_s = time.perf_counter() - t0
+    log(f"fabricated {IC_SAMPLES} whole-genome .bai files (hg38's 24 "
+        f"chromosomes, {n_bins} bins a sample, "
+        f"{sum(os.path.getsize(b) for b in bais) / 1e6:.1f} MB) in "
+        f"{fab_s:.1f} s")
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    try:
+        import PIL  # noqa: F401
+
+        pillow = True
+    except ImportError:
+        pillow = False
+    runs = {}
+
+    # run A: the headline, 30 samples with the reports
+    head = bais[:IC_HEADLINE]
+    out_a = os.path.join(d, "A", "card", "out")
+    rep_path = os.path.join(d, "A.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
+                              out_a, "--fai", fai, *head], env)
+    if r.returncode != 0:
+        raise AssertionError(f"indexcov run A failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+    runs["A"] = _ic_summary("run A (default flags, --fai)", rep, cmd_s,
+                            stages, wall, len(head))
+    assert runs["A"]["launches"] == 0
+    t0 = time.perf_counter()
+    oracle = indexcov_oracle(head)
+    import gzip
+
+    with gzip.open(os.path.join(out_a, "out-indexcov.bed.gz"), "rt") as fh:
+        fh.readline()
+        _same_bytes("run A bed.gz (against the numpy oracle)", fh.read(),
+                    oracle["bed"])
+    with open(os.path.join(out_a, "out-indexcov.ped")) as fh:
+        hdr = fh.readline().rstrip("\n").split("\t")
+        prows = [line.rstrip("\n").split("\t") for line in fh]
+    col = {c: i for i, c in enumerate(hdr)}
+    for chrom in ("chrX", "chrY"):
+        got = [r[col["CN" + chrom]] for r in prows]
+        assert got == oracle["cn"][chrom], (chrom, got, oracle["cn"][chrom])
+    for k, c in (("in", "bins.in"), ("out", "bins.out"), ("hi", "bins.hi"),
+                 ("lo", "bins.lo")):
+        assert [int(r[col[c]]) for r in prows] == \
+            oracle["counters"][k].tolist(), c
+    assert [int(r[col["sex"]]) for r in prows] == \
+        [1 if s % 2 == 0 else 2 for s in range(len(head))]
+    tols = oracle["pca_rtol"]
+    pc_err = {"card": pcs_up_to_sign(
+        ped_pcs(os.path.join(out_a, "out-indexcov.ped")), oracle["pcs"],
+        "run A PCs (card) against the float64 oracle", tols)}
+    oracle_s = time.perf_counter() - t0
+    out_cpu = os.path.join(d, "A", "cpu", "out")
+    t0 = time.perf_counter()
+    run_indexcov(head, out_cpu, fai=fai, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    pc_err["cpu"] = pcs_up_to_sign(
+        ped_pcs(os.path.join(out_cpu, "out-indexcov.ped")), oracle["pcs"],
+        "run A PCs (CPU path) against the float64 oracle", tols)
+    same = compare_indexcov_dirs(out_cpu, out_a, pca_rtol=tols)
+    log(f"run A: bed.gz, CNX/CNY, bin counters and sex equal to the numpy "
+        f"oracle ({oracle_s:.1f} s); all {same['files']} outputs "
+        f"byte-identical to the CPU path ({cpu_s:.1f} s) but the PCA "
+        f"columns and charts, equal up to sign; PC errors over each "
+        f"component's scale against the float64 oracle, card "
+        + ", ".join(f"{e:.2e}" for e in pc_err["card"]) + "; CPU path "
+        + ", ".join(f"{e:.2e}" for e in pc_err["cpu"]) + "; tolerances "
+        + ", ".join(f"{t:.2e}" for t in tols)
+        + f"; PNGs written: {same['png']} (Pillow "
+        f"{'installed' if pillow else 'missing'})")
+    runs["A"].update(cpu_s=cpu_s, files=same["files"], png=same["png"],
+                     pc_err=pc_err, pca_rtol=tols)
+
+    # run B: cohort scale, -n
+    out_b = os.path.join(d, "B", "card", "out")
+    rep_path = os.path.join(d, "B.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
+                              out_b, "--fai", fai, "-n", "--no-html",
+                              *bais], env)
+    if r.returncode != 0:
+        raise AssertionError(f"indexcov run B failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+    runs["B"] = _ic_summary("run B (-n --no-html)", rep, cmd_s, stages,
+                            wall, len(bais))
+    assert runs["B"]["launches"] == 22, runs["B"]["launches"]
+    out_c21 = os.path.join(d, "B", "cpu", "out")
+    t0 = time.perf_counter()
+    run_indexcov(bais, out_c21, fai=fai, chrom="chr21",
+                 extra_normalize=True, write_html=False, write_png=False,
+                 device="cpu")
+    c21_s = time.perf_counter() - t0
+    for suffix in (".bed.gz", ".roc"):
+        _same_bytes(f"run B chr21 rows of {suffix} (card against the CPU "
+                    f"path's -c chr21 -n)",
+                    _rows_of(os.path.join(out_b, "out-indexcov" + suffix),
+                             "chr21"),
+                    _rows_of(os.path.join(out_c21, "out-indexcov" + suffix),
+                             "chr21"))
+    bed_b = os.path.getsize(os.path.join(out_b, "out-indexcov.bed.gz"))
+    log(f"run B: chr21 rows of bed.gz and ROC byte-identical to the CPU "
+        f"path's -c chr21 -n ({c21_s:.1f} s); bed.gz {bed_b / 1e6:.1f} MB")
+    runs["B"].update(cpu_chr21_s=c21_s, bed_gz_bytes=bed_b)
+
+    # kill and resume: 30 samples, -n, under --checkpoint-dir
+    ck = os.path.join(d, "ck")
+    out_c = os.path.join(d, "C", "out")
+    out_k = os.path.join(d, "K", "out")
+    rep_path = os.path.join(d, "C.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
+                              out_c, "--fai", fai, "-n", "--no-html",
+                              *head], env)
+    assert r.returncode == 0, r.stderr[-4000:]
+    rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+    runs["C"] = _ic_summary("run C (-n --no-html, uninterrupted)", rep,
+                            cmd_s, stages, wall, len(head))
+    full = runs["C"]["launches"]
+    assert full == 22, full
+    want = _ic_bytes(out_c)
+    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "indexcov", "-d",
+                           out_k, "--fai", fai, "-n", "--no-html",
+                           "--checkpoint-dir", ck, *head], env)
+    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+    launches = []
+    for name in ("resumed", "resumed again"):
+        rep_path = os.path.join(d, f"K{len(launches)}.json")
+        r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov",
+                                  "-d", out_k, "--fai", fai, "-n",
+                                  "--no-html", "--checkpoint-dir", ck,
+                                  "--resume", *head], env)
+        assert r.returncode == 0, r.stderr[-4000:]
+        rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+        runs[name] = _ic_summary(f"run C {name}", rep, cmd_s, stages, wall,
+                                 len(head))
+        launches.append(runs[name]["launches"])
+        got = _ic_bytes(out_k)
+        assert sorted(got) == sorted(want), (sorted(got), sorted(want))
+        for f in want:
+            assert got[f] == want[f], f"{name}: {f} differs"
+    assert 0 < launches[0] < full and launches[1] == 0, launches
+    log(f"kill and resume: killed by {IC_KILL} (rc -9), resumed with "
+        f"{launches[0]} indexcov_norm launches, then {launches[1]} over "
+        f"the complete store; both byte-identical to run C ({full} "
+        f"launches)")
+    return {"fabricate_s": fab_s, "bins_a_sample": n_bins,
+            "pillow": pillow, "runs": runs}
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
@@ -2352,6 +3029,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, root)
     from goleft_tpu_torch.device import card_provenance, nvidia_smi_line
     from goleft_tpu_torch.ops import depth_kernel as dk
+    from goleft_tpu_torch.ops import norm_kernel as nk
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
     from goleft_tpu_torch.ops import rans_kernel as rk
 
@@ -2360,10 +3038,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
-    built = build_kernels({"depth": dk, "pairhmm": pk, "rans": rk})
+    built = build_kernels({"depth": dk, "pairhmm": pk, "rans": rk,
+                           "indexcov_norm": nk})
     log(f"kernels built in parallel in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
-    for mod in (dk, pk, rk):
+    for mod in (dk, pk, rk, nk):
         log(mod.BUILD_LOG.strip())
 
     blank = {"status": "fail", "launches": 0, "max_abs_err": None,
@@ -2378,7 +3057,11 @@ def main(argv=None) -> int:
     rans = dict(name="rans", route="cuda",
                 source="goleft_tpu_torch/csrc/rans_kernel.cu",
                 replaces="goleft_tpu/ops/rans_device.py:494", **blank)
-    kernels = [depth, pairhmm, rans]
+    norm = dict(name="indexcov_norm", route="cuda",
+                source="goleft_tpu_torch/csrc/indexcov_norm.cu",
+                replaces="goleft_tpu/cohort/streaming.py:156 (lax.scan, "
+                         "no Pallas)", **blank)
+    kernels = [depth, pairhmm, rans, norm]
     results = {"provenance": prov, "build_s": built}
     workdir = os.path.join(root, "build", "chip_smoke")
     try:
@@ -2428,6 +3111,12 @@ def main(argv=None) -> int:
                     plain_ms=o0["plain_ms"], bound_ms=o0["bound_ms"],
                     bound_by=o0["bound_by"],
                     chain_bound_ms=o0["chain_bound_ms"])
+        results["norm_kernel"] = nres = norm_kernel_phase(dev)
+        results["indexcov"] = ic = indexcov_phase(root, workdir)
+        norm.update(status="pass", launches=ic["runs"]["B"]["launches"],
+                    max_abs_err=nres["max_abs_err"], ms=nres["ms"],
+                    plain_ms=nres["plain_ms"], bound_ms=nres["bound_ms"],
+                    bound_by=nres["bound_by"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -69,6 +69,8 @@ PROGS = {
               _lazy(".commands.depth")),
     "emdepth": ("EM copy-number calls from a depth matrix on the CUDA card",
                 _lazy(".commands.emdepth_cmd")),
+    "indexcov": ("cohort coverage QC from BAM/CRAM indexes only on the "
+                 "CUDA card", _lazy(".commands.indexcov")),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
 }
@@ -172,7 +174,7 @@ def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
                     seconds: float, trace_id: str | None) -> None:
     from .io import native
     from .obs.manifest import write_manifest
-    from .ops import depth_kernel, pairhmm_kernel, rans_kernel
+    from .ops import depth_kernel, norm_kernel, pairhmm_kernel, rans_kernel
 
     try:
         write_manifest(
@@ -183,7 +185,8 @@ def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
                    "import_seconds": sum(IMPORT_SECONDS.values()),
                    "kernel_launches": {**depth_kernel.LAUNCHES,
                                        **pairhmm_kernel.LAUNCHES,
-                                       **rans_kernel.LAUNCHES},
+                                       **rans_kernel.LAUNCHES,
+                                       **norm_kernel.LAUNCHES},
                    "native_io": native.get_lib() is not None})
     except OSError as e:
         print(f"goleft-tpu-torch: could not write --metrics-out: {e}",

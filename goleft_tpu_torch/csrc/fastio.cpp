@@ -1,7 +1,8 @@
 // Host-IO fast path of the port: BGZF block scan/inflate/deflate, BAM
 // record decode, the streaming segment walk that feeds the depth kernel,
 // the host-side window reductions of cohortdepth's hybrid engine, the
-// .bai structure scan and the depth/callable BED row formatters.
+// .bai structure scan, the depth/callable BED row formatters, and
+// indexcov's %.3g matrix rows and chart-point JSON.
 //
 // A copy of the JAX package's csrc/fastio.cpp trimmed to the entry points
 // goleft_tpu_torch/io/native.py binds; the CRAM codecs are left out.
@@ -797,6 +798,8 @@ long bai_scan(const uint8_t* data, long len, long max_ref,
     return n_ref;
 }
 
+static long fmt_g(double v, char* p, int prec);
+
 // Fast non-negative int64 → decimal; returns chars written.
 static inline long itoa_u(int64_t v, char* p) {
     char tmp[24];
@@ -867,6 +870,168 @@ long format_class_rows(const char* chrom, long chrom_len,
         w += nl;
         out[w++] = '\n';
     }
+    return w;
+}
+
+// Float matrix rows "chrom\tstart\tend\t%.{prec}g...\n" with a validity
+// mask (invalid cells print "0" — shorter samples' missing tail bins,
+// indexcov.go:678-680). vals/valid are (n_cols, n_rows) col-major like
+// format_matrix_rows. Byte-identical to numpy's np.char.mod("%.3g").
+long format_float_matrix_rows(const char* chrom, long chrom_len,
+                              const int64_t* starts, const int64_t* ends,
+                              const double* vals, const uint8_t* valid,
+                              long n_rows, long n_cols, int prec,
+                              char* out, long out_cap) {
+    if (prec > 17) prec = 17;  // "%.17g" worst case fits the 33B budget
+    static locale_t c_loc3 = newlocale(LC_NUMERIC_MASK, "C", (locale_t)0);
+    locale_t old = c_loc3 != (locale_t)0 ? uselocale(c_loc3)
+                                         : (locale_t)0;
+    long w = 0;
+    for (long r = 0; r < n_rows; r++) {
+        if (w + chrom_len + 2 * 21 + n_cols * 34 + 2 > out_cap) {
+            w = -1;
+            break;
+        }
+        memcpy(out + w, chrom, chrom_len);
+        w += chrom_len;
+        out[w++] = '\t';
+        w += itoa_u(starts[r], out + w);
+        out[w++] = '\t';
+        w += itoa_u(ends[r], out + w);
+        for (long c = 0; c < n_cols; c++) {
+            out[w++] = '\t';
+            if (valid[c * n_rows + r]) {
+                double v = vals[c * n_rows + r];
+                long fw = fmt_g(v, out + w, prec);
+                if (fw >= 0)
+                    w += fw;
+                else
+                    w += snprintf(out + w, 33, "%.*g", prec, v);
+            } else {
+                out[w++] = '0';
+            }
+        }
+        out[w++] = '\n';
+    }
+    if (old != (locale_t)0)
+        uselocale(old);
+    return w;
+}
+
+// %.{prec}g-compatible fast formatter for the fixed-notation regime
+// (1e-4 <= v < 10^prec): round to prec significant decimal digits,
+// place the point, strip trailing fraction zeros. Returns chars
+// written, or -1 to defer to snprintf (out of regime, or the scaled
+// value sits within 1e-7 of a .5 rounding tie where double arithmetic
+// can't decide the way printf's exact-decimal rounding would).
+static long fmt_g(double v, char* p, int prec) {
+    static const double P10[22] = {
+        1e0, 1e1, 1e2, 1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9, 1e10, 1e11,
+        1e12, 1e13, 1e14, 1e15, 1e16, 1e17, 1e18, 1e19, 1e20, 1e21,
+    };
+    if (prec < 1 || prec > 15) return -1;
+    if (v != v) return -1;  // NaN: snprintf prints "nan"
+    long w = 0;
+    if (v < 0) {
+        p[w++] = '-';
+        v = -v;
+    }
+    if (v == 0.0) {
+        if (std::signbit(v)) p[w++] = '-';  // %g prints "-0" for -0.0
+        p[w++] = '0';
+        return w;
+    }
+    if (v < 1e-4 || v >= P10[prec]) return -1;  // exponential regime
+    int e = 0;  // v = d.ddd... * 10^e
+    double t = v;
+    while (t >= 10.0) { t /= 10.0; e++; }
+    while (t < 1.0) { t *= 10.0; e--; }
+    // e in [-4, prec-1] -> index in [0, prec+3]
+    double scaled = v * P10[prec - 1 - e];
+    double fr = scaled - (double)(long)scaled;
+    double d = fr - 0.5;
+    if (d < 1e-7 && d > -1e-7) return -1;  // ambiguous rounding tie
+    long ndig = (long)(scaled + 0.5);
+    long full = (long)P10[prec];
+    if (ndig >= full) {  // e.g. 999.6 at prec 3 -> 1.00e(e+1)
+        ndig = full / 10;
+        e++;
+        if (e >= prec) return -1;
+    }
+    char digs[16];
+    for (int k = prec - 1; k >= 0; k--) {
+        digs[k] = (char)('0' + ndig % 10);
+        ndig /= 10;
+    }
+    int last = prec - 1;  // strip trailing zeros of the fraction only
+    while (last > e && last > 0 && digs[last] == '0') last--;
+    if (e >= 0) {
+        for (int k = 0; k <= e; k++) p[w++] = digs[k];
+        if (last > e) {
+            p[w++] = '.';
+            for (int k = e + 1; k <= last; k++) p[w++] = digs[k];
+        }
+    } else {
+        p[w++] = '0';
+        p[w++] = '.';
+        for (int k = 0; k < -e - 1; k++) p[w++] = '0';
+        for (int k = 0; k <= last; k++) p[w++] = digs[k];
+    }
+    return w;
+}
+
+// Serialize chart point pairs as JSON: [{"x":..,"y":..},...] with %.*g
+// values (C locale). Non-finite values emit null (valid JSON; chart.js
+// skips them). This is the report writer's hot loop (tens of millions
+// of points at whole-genome sizes), so the common cases skip snprintf:
+// integral x up to 10 digits with xprec>=10 go through itoa (identical
+// bytes), and fixed-regime y values through the generalized fmt_g.
+// Returns bytes written or -1 on capacity.
+long format_xy_json(const double* xs, const double* ys, long n,
+                    int xprec, int yprec, char* out, long out_cap) {
+    if (xprec > 17) xprec = 17;  // "%.17g" fits the 32B point budget
+    if (yprec > 17) yprec = 17;
+    static locale_t c_loc2 = newlocale(LC_NUMERIC_MASK, "C", (locale_t)0);
+    locale_t old = c_loc2 != (locale_t)0 ? uselocale(c_loc2)
+                                         : (locale_t)0;
+    long w = 0;
+    out[w++] = '[';
+    for (long i = 0; i < n; i++) {
+        if (w + 2 * 32 + 16 > out_cap) {
+            w = -1;
+            break;
+        }
+        if (i) out[w++] = ',';
+        memcpy(out + w, "{\"x\":", 5);
+        w += 5;
+        double x = xs[i], y = ys[i];
+        if (x == x && x - x == 0.0) {
+            long xi = (long)x;
+            if (xprec >= 10 && (double)xi == x && x < 1e10 && x >= 0)
+                w += itoa_u(xi, out + w);
+            else
+                w += snprintf(out + w, 32, "%.*g", xprec, x);
+        } else {
+            memcpy(out + w, "null", 4);
+            w += 4;
+        }
+        memcpy(out + w, ",\"y\":", 5);
+        w += 5;
+        if (y == y && y - y == 0.0) {
+            long fw = fmt_g(y, out + w, yprec);
+            if (fw >= 0)
+                w += fw;
+            else
+                w += snprintf(out + w, 32, "%.*g", yprec, y);
+        } else {
+            memcpy(out + w, "null", 4);
+            w += 4;
+        }
+        out[w++] = '}';
+    }
+    if (w >= 0) out[w++] = ']';
+    if (old != (locale_t)0)
+        uselocale(old);
     return w;
 }
 

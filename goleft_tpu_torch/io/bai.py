@@ -1,10 +1,13 @@
 """BAI (BAM index) codec, from the SAM specification section 5.2.
 
-A copy of the JAX package's io/bai.py trimmed to what ``depth`` uses:
-parse (``read_bai``), region seek (``query_voffset``), and
-``build_bai`` + ``write_bai``, which fabricate .bai fixtures from BAMs
-written with io.bam.BamWriter. The stats pseudo-bin 37450 (0x924a) carries
-per-reference mapped/unmapped read counts.
+A copy of the JAX package's io/bai.py trimmed to what ``depth`` and
+``indexcov`` use: parse (``read_bai``), region seek (``query_voffset``),
+indexcov's per-16KB-tile sizes (``BaiIndex.sizes``: the deltas of
+consecutive linear-index virtual offsets, indexcov/indexcov.go:78-80; a
+reference with <2 linear intervals yields an empty list) and read
+counts, and ``build_bai`` + ``write_bai``, which fabricate .bai fixtures
+from BAMs written with io.bam.BamWriter. The stats pseudo-bin 37450
+(0x924a) carries per-reference mapped/unmapped read counts.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ class RefIndex:
     """One reference's index entries.
 
     ``bins`` parse lazily: the region-query path (query_voffset) only
-    reads the linear index.
+    reads the linear index, and indexcov only needs intervals + stats.
     """
 
     __slots__ = ("intervals", "mapped", "unmapped", "_bins", "_raw")
@@ -49,6 +52,34 @@ class RefIndex:
 class BaiIndex:
     refs: list[RefIndex]
     n_no_coor: int
+
+    def sizes(self) -> list[np.ndarray]:
+        """Per-reference int64 arrays of per-16KB-tile voffset deltas."""
+        out = []
+        for r in self.refs:
+            iv = r.intervals.astype(np.int64)
+            if len(iv) < 2:
+                out.append(np.zeros(0, dtype=np.int64))
+                continue
+            d = np.diff(iv)
+            if np.any(d < 0):
+                raise ValueError("bai: negative voffset delta in linear index")
+            out.append(d)
+        return out
+
+    @property
+    def mapped_total(self) -> int:
+        return sum(r.mapped for r in self.refs if r.mapped >= 0)
+
+    @property
+    def unmapped_total(self) -> int:
+        return sum(r.unmapped for r in self.refs if r.unmapped >= 0)
+
+    def reference_stats(self, tid: int) -> tuple[int, int] | None:
+        r = self.refs[tid]
+        if r.mapped < 0:
+            return None
+        return r.mapped, r.unmapped
 
 
 def _parse_bins(data, start: int, end: int) -> tuple[dict, int, int]:

@@ -58,6 +58,22 @@ class BamHeader:
     def tid(self, name: str) -> int:
         return self._name_to_tid[name]
 
+    def sample_names(self) -> list[str]:
+        """Unique SM tags from @RG lines, in first-seen order.
+
+        Mirrors samplename.Names (reference samplename/samplename.go:14-37).
+        """
+        seen: list[str] = []
+        for line in self.text.splitlines():
+            if not line.startswith("@RG"):
+                continue
+            for tok in line.split("\t")[1:]:
+                if tok.startswith("SM:"):
+                    sm = tok[3:]
+                    if sm and sm not in seen:
+                        seen.append(sm)
+        return seen
+
 
 @dataclass
 class BamRecord:
@@ -491,6 +507,57 @@ class _PyBamAdapter:
                                  voffset=voffset)
         return filter_clip_segments(cols, start, end, min_mapq,
                                     flag_mask)
+
+
+def read_header_only(path: str, initial: int = 1 << 20) -> BamHeader:
+    """Parse just the BAM header, reading a growing file prefix — avoids
+    pulling multi-GB files into memory for an SM-tag lookup. Remote
+    URLs read the same growing prefix as ranged fetches — an SM-tag
+    lookup against an object store costs a few round trips, not the
+    object."""
+    import os
+
+    from . import remote
+
+    if remote.is_remote(path):
+        with remote.open_source(path) as src:
+            size = src.length
+            n = min(initial, size)
+            while True:
+                data = src.read(0, n)
+                try:
+                    return BamReader(data).header
+                except Exception:
+                    if n >= size:
+                        raise
+                    n = min(n * 4, size)
+    size = os.path.getsize(path)
+    n = min(initial, size)
+    while True:
+        with open(path, "rb") as fh:
+            data = fh.read(n)
+        try:
+            return BamReader(data).header
+        except Exception:
+            if n >= size:
+                raise
+            n = min(n * 4, size)
+
+
+def read_alignment_header(path: str) -> BamHeader:
+    """Header of a BAM or CRAM file (magic-dispatched)."""
+    from . import remote
+
+    if remote.is_remote(path):
+        magic = remote.read_range(path, 0, 4)
+    else:
+        with open(path, "rb") as fh:
+            magic = fh.read(4)
+    if magic == b"CRAM":
+        from .cram import CramFile
+
+        return CramFile.from_file(path).header
+    return read_header_only(path)
 
 
 def open_bam_file(path: str):

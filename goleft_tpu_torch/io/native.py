@@ -92,7 +92,8 @@ def _load() -> ctypes.CDLL | None:
     for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
                  "bam_decode", "bam_segments_stream", "bam_window_reduce",
                  "bam_window_reduce_stream", "bam_window_acc_stream",
-                 "bai_scan", "format_depth_rows", "format_class_rows"):
+                 "bai_scan", "format_depth_rows", "format_class_rows",
+                 "format_float_matrix_rows", "format_xy_json"):
         getattr(lib, name).restype = ctypes.c_long
     return lib
 
@@ -496,3 +497,56 @@ def bam_window_acc_stream(comp, c_begin: int, in_block: int,
         raise ValueError(f"bam_window_acc_stream: {_stream_err(nk)}")
     return {"wsums": wsums, "n_kept": int(nk),
             "max_overlap": int(mx.value)}
+
+
+def format_float_matrix_rows(chrom: str, starts: np.ndarray,
+                             ends: np.ndarray, vals: np.ndarray,
+                             valid: np.ndarray,
+                             prec: int = 3) -> bytes | None:
+    """Float matrix bed rows (%.{prec}g; invalid cells → "0"); None
+    without native. vals/valid are (n_cols, n_rows)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_cols, n_rows = vals.shape
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.float64)
+    valid = np.ascontiguousarray(valid, dtype=np.uint8)
+    cb = chrom.encode()
+    cap = n_rows * (len(cb) + 2 * 21 + n_cols * 34 + 4) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.format_float_matrix_rows(
+        ctypes.c_char_p(cb), ctypes.c_long(len(cb)),
+        _ptr(starts, ctypes.c_int64), _ptr(ends, ctypes.c_int64),
+        _ptr(vals, ctypes.c_double), _ptr(valid, ctypes.c_uint8),
+        ctypes.c_long(n_rows), ctypes.c_long(n_cols),
+        ctypes.c_int(prec), _ptr(out, ctypes.c_char),
+        ctypes.c_long(cap),
+    )
+    if w < 0:
+        raise ValueError("format_float_matrix_rows: capacity exceeded")
+    return out[:w].tobytes()
+
+
+def format_xy_json(xs: np.ndarray, ys: np.ndarray, xprec: int = 10,
+                   yprec: int = 5) -> bytes | None:
+    """'[{"x":..,"y":..},...]' JSON bytes; None without native."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    xs = np.ascontiguousarray(xs, dtype=np.float64)
+    ys = np.ascontiguousarray(ys, dtype=np.float64)
+    if len(xs) != len(ys):
+        raise ValueError("format_xy_json: x/y length mismatch")
+    n = len(xs)
+    cap = n * 80 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.format_xy_json(
+        _ptr(xs, ctypes.c_double), _ptr(ys, ctypes.c_double),
+        ctypes.c_long(n), ctypes.c_int(xprec), ctypes.c_int(yprec),
+        _ptr(out, ctypes.c_char), ctypes.c_long(cap),
+    )
+    if w < 0:
+        raise ValueError("format_xy_json: capacity exceeded")
+    return out[:w].tobytes()

@@ -17,7 +17,8 @@ The instrumented sites of the port:
 
     bgzf     the portable BGZF codec, per block inflate (io/bgzf.py)
     shard    shard execution: the depth scheduler's attempts
-             (parallel/scheduler.py) and cohortdepth's region loop
+             (parallel/scheduler.py), cohortdepth's region loop and
+             indexcov's per-chromosome QC step
     cache    ResultCache get/put (parallel/scheduler.py)
     pairhmm  the pair-HMM forward's per-bucket dispatch (ops/pairhmm.py)
     decode   the device rANS decode's per-container Step

@@ -1,6 +1,7 @@
-"""The CUDA kernels (depth, pair-HMM, rANS-Nx16) against their plain
-PyTorch versions, and the EM copy-number caller and cn.mops against
-their CPU path, on a card.
+"""The CUDA kernels (depth, pair-HMM, rANS-Nx16, indexcov's
+normalisation) against their plain PyTorch versions, and the EM
+copy-number caller, cn.mops and indexcov against their CPU path, on a
+card.
 
 Imports neither JAX nor the JAX package, so it runs on a machine with
 only PyTorch, without the suite's conftest:
@@ -14,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import DEPTH_EDGES, depth_edge_case
+from chip_smoke import (DEPTH_EDGES, HG38, NORM_EDGES, compare_indexcov_dirs,
+                        depth_edge_case, indexcov_fabricate, norm_edge_case,
+                        norm_main_case)
 from goleft_tpu_torch.ops import depth_kernel as dk
 from goleft_tpu_torch.ops.coverage import bucket_size, pack_segments_u16
 
@@ -424,3 +427,57 @@ def test_mops_on_card_equals_cpu():
                        mops.posterior_cn(c["aik"]))
     np.testing.assert_allclose(mops.information_gain(g["aik"]).cpu(),
                                mops.information_gain(c["aik"]), rtol=1e-9)
+
+
+def _norm_on_card(case):
+    d, ln, m, skip = case
+    dev = torch.device("cuda")
+    return (torch.from_numpy(np.ascontiguousarray(d)).to(dev),
+            torch.from_numpy(ln.astype(np.int32)).to(dev),
+            torch.from_numpy(m).to(dev), torch.from_numpy(skip).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(NORM_EDGES) + ["main"])
+def test_indexcov_norm_kernel_equals_plain_on_card(name):
+    """chip_smoke.py's NORM_EDGES and a 300-sample slice of its main case
+    (chr1 at 16 KB): the kernel bitwise against its plain version, one
+    counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import norm_kernel as nk
+
+    case = norm_main_case(np.random.default_rng(1), n=300) \
+        if name == "main" else norm_edge_case(name)
+    t = _norm_on_card(case)
+    before = nk.LAUNCHES["indexcov_norm"]
+    got = nk.norm_scan(*t)
+    want = nk.apply_normalization_plain(*t)
+    torch.cuda.synchronize()
+    assert nk.LAUNCHES["indexcov_norm"] == before + 1
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_run_indexcov_on_card_equals_cpu(tmp_path):
+    """``run_indexcov`` on the card against its CPU path on eight
+    fabricated .bai files (chr1-chr3, chrX, chrY): every output
+    byte-identical but the PCA columns and charts (equal up to sign),
+    with and without -n; -n launches the kernel once an autosome."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.commands.indexcov import run_indexcov
+    from goleft_tpu_torch.ops import norm_kernel as nk
+
+    contigs = tuple((n, (400 + 57 * i) * 16384 + 99) for i, (n, _) in
+                    enumerate(HG38[:3] + HG38[-2:]))
+    bais, fai = indexcov_fabricate(str(tmp_path), 8,
+                                   np.random.default_rng(6), contigs)
+    for k, kw in enumerate(({}, {"extra_normalize": True})):
+        card = str(tmp_path / f"card{k}" / "out")
+        cpu = str(tmp_path / f"cpu{k}" / "out")
+        before = nk.LAUNCHES["indexcov_norm"]
+        run_indexcov(bais, card, fai=fai, device="cuda", **kw)
+        assert nk.LAUNCHES["indexcov_norm"] - before == 3 * k
+        run_indexcov(bais, cpu, fai=fai, device="cpu", **kw)
+        compare_indexcov_dirs(cpu, card)

@@ -31,7 +31,8 @@ def _sources():
     yield os.path.join(ROOT, "chip_smoke.py")
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
-                 "cohort_bench.py", "flags_bench.py", "em_bench.py"):
+                 "cohort_bench.py", "flags_bench.py", "em_bench.py",
+                 "norm_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -44,7 +45,7 @@ def test_sources_import_neither_jax_nor_reference():
         seen.append(os.path.relpath(path, PKG))
     assert len(seen) > 10
     for sub in ("obs", "plan", "resilience", "models", "ops", "commands",
-                "io", "parallel", "utils"):
+                "io", "parallel", "utils", "cohort"):
         assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
@@ -258,6 +259,77 @@ def test_cpu_cnv_run_loads_no_jax(tmp_path):
     assert "<DEL>" in (tmp_path / "c.vcf").read_text()
 
 
+def test_cpu_indexcov_run_loads_no_jax(tmp_path):
+    """Six whole-index .bai files and an .fai through the port's indexcov
+    with ``-n``, the reports and PNGs, on the CPU, in a fresh interpreter;
+    then neither jax nor goleft_tpu is loaded, and the modules of the
+    slice (the normalisation, its kernel's module, the report writer, and
+    the CRAI reader imported beside them) are."""
+    script = textwrap.dedent(f"""
+        import struct, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.commands.indexcov import run_indexcov
+        import goleft_tpu_torch.io.crai
+        d = {str(tmp_path)!r}
+        lens = {{"chr1": 60 * 16384, "chrX": 30 * 16384, "chrY": 9 * 16384}}
+        with open(d + "/ref.fa.fai", "w") as fh:
+            for n, ln in lens.items():
+                fh.write(f"{{n}}\\t{{ln}}\\t6\\t60\\t61\\n")
+        rng = np.random.default_rng(3)
+        paths = []
+        for s in range(6):
+            blob = bytearray(b"BAI\\x01") + struct.pack("<i", len(lens))
+            for n, ln in lens.items():
+                half = (n != "chr1" and s % 2 == 0)
+                deltas = rng.integers(36000, 44000, ln // 16384)
+                if half:
+                    deltas //= 2
+                if n == "chrY" and s % 2:
+                    deltas = deltas // 1000
+                iv = (np.cumsum(deltas).astype(np.uint64) << np.uint64(16))
+                blob += struct.pack("<i", 1) + struct.pack("<Ii", 0x924A, 2)
+                blob += struct.pack("<QQQQ", 0, 0, 1000, 10)
+                blob += struct.pack("<i", len(iv)) + iv.astype("<u8").tobytes()
+            p = f"{{d}}/s{{s}}.bai"
+            open(p, "wb").write(bytes(blob))
+            paths.append(p)
+        res = run_indexcov(paths, d + "/out", fai=d + "/ref.fa.fai",
+                           extra_normalize=True, device="cpu")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        mods = [m for m in ("goleft_tpu_torch.cohort.streaming",
+                            "goleft_tpu_torch.ops.norm_kernel",
+                            "goleft_tpu_torch.utils.report",
+                            "goleft_tpu_torch.io.crai")
+                if m in sys.modules]
+        print("SEX", [int(0.5 + c) for c in res["sexes"]["chrX"]])
+        print("MODS", len(mods))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "SEX [1, 2, 1, 2, 1, 2]" in r.stdout, r.stdout
+    assert "MODS 4" in r.stdout and "LOADED []" in r.stdout, r.stdout
+    for f in ("out-indexcov.bed.gz", "out-indexcov.ped", "index.html",
+              "out-indexcov-depth-chr1.html"):
+        assert (tmp_path / "out" / f).stat().st_size > 0, f
+
+
+def test_indexcov_default_run_needs_a_card(monkeypatch, tmp_path):
+    """``run_indexcov`` without ``device`` asks for the card: without one
+    it raises before it writes anything."""
+    from goleft_tpu_torch.commands.indexcov import run_indexcov
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(device.NoCudaDevice):
+        run_indexcov(["x.bai"], str(tmp_path / "out"))
+    assert not (tmp_path / "out").exists()
+
+
 def test_cpu_trace_out_run_loads_no_jax(tmp_path):
     """The port's CLI with ``--trace-out``, ``--metrics-out``,
     ``--inject-faults`` and ``depth --cache`` in a fresh interpreter,
@@ -345,7 +417,8 @@ def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
 
     rep = load_manifest(str(report))
     assert rep["command"] == "depth" and rep["exit_code"] == 1
-    assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0}
+    assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0,
+                                      "indexcov_norm": 0}
     assert rep["backend"]["platform"] == "cpu"
     assert rep["spans"]["run.depth"]["calls"] == 1
 
@@ -383,7 +456,8 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
     assert set(ref.REQUIRED_KEYS) == set(port.REQUIRED_KEYS) <= set(doc)
     assert doc["backend"]["platform"] == "cpu"
     assert doc["backend"]["device_kind"] == "cpu"
-    assert doc["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0}
+    assert doc["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0,
+                                      "indexcov_norm": 0}
     assert doc["command"] == "depth" and doc["exit_code"] == 1
     assert doc["argv"][0] == "goleft-tpu-torch depth"
     assert doc["spans"]["run.depth"]["calls"] == 1
@@ -401,6 +475,6 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
 
 def test_cli_lists_depth():
     assert sorted(cli.PROGS) == ["cnv", "cohortdepth", "depth", "emdepth",
-                                 "pairhmm"]
+                                 "indexcov", "pairhmm"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
