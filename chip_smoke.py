@@ -116,13 +116,18 @@ Run from the root of a checkout, on a machine with one CUDA card:
    matrix, on the card against the CPU (the differing windows are
    printed on a failure); prints samples x contig bp a second;
 13. holds indexcov's normalisation kernel (csrc/indexcov_norm.cu)
-   against its plain version on the card, bitwise: 2,504 samples (the
-   1000 Genomes phase-3 cohort) x 15,195 bins (chr1 at 16 KB), samples
-   ending 1-5 bins early, a length-0 sample, a run of m < 0.1 bins, the
-   scalars from the port's NormStats; then NORM_EDGES (lanes of length
-   0-8 and ending 0-5 bins early, widths 1, 3 and 7, non-zero padding,
-   every skip of NormStats, a 5-sample cohort); prints the kernel's time
-   (CUDA events, median of 20), the plain version's and the bytes bound;
+   against its plain version on the card, bitwise: NORM_EDGES (lanes of
+   length 0-8 and ending 0-5 bins early, widths 1, 3, 7 and a tile's
+   width - 1, + 0, + 1 and + 3, 1, 31 and 33 lanes, lengths ending 0-3
+   bins either side of a tile edge, non-zero padding, every skip of
+   NormStats, a 5-sample cohort); then the first 32, 500 and 2,504
+   samples (the 1000 Genomes phase-3 cohort) x 15,195 bins (chr1 at 16
+   KB), samples ending 1-5 bins early, a length-0 sample, a run of
+   m < 0.1 bins, the scalars from the port's NormStats; prints ptxas's
+   registers, shared memory and spills, the kernel's time at each width
+   (CUDA events, median of 20) and its cycles a bin, the plain
+   version's, the bytes bound and the dependence chain's
+   (NORM_CYCLES_PER_BIN);
 14. fabricates 500 whole-genome .bai files (hg38's 24 chromosomes at
    their GRCh38 lengths, 188,457 bins a sample, sex planted) with an
    .fai, and runs ``python -m goleft_tpu_torch indexcov`` in fresh
@@ -149,6 +154,7 @@ import argparse
 import json
 import multiprocessing as mp
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -848,27 +854,36 @@ def ph_trap_bucket(rng, n, read_len, hap_len, dtype):
     return reads_p, pm, px, rlens, haps_p, hlens
 
 
-def kernel_resources(build_log: str) -> dict:
-    """ptxas's report of the pair-HMM kernel's instantiations →
-    {"float32 R6": {"registers", "spill_stores", "spill_loads"}, ...}."""
-    import re
+def _pairhmm_key(name: str):
+    m = re.search(r"pairhmm_forward_kernelI([fd])Lb[01]ELi(\d)E", name)
+    return m and f"{'float32' if m[1] == 'f' else 'float64'} R{m[2]}"
 
-    out, key = {}, None
+
+def kernel_resources(build_log: str, key=_pairhmm_key) -> dict:
+    """ptxas's report → {key: {"registers", "spill_stores", "spill_loads"}}
+    (and "smem_bytes" where ptxas prints static shared memory) for each
+    compiled kernel whose mangled name ``key`` maps to a key (None skips
+    it); by default the pair-HMM kernel's instantiations, "float32 R6",
+    ..."""
+    out, k = {}, None
     for line in build_log.splitlines():
-        m = re.search(r"Compiling entry function '\S*pairhmm_forward_kernel"
-                      r"I([fd])Lb[01]ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            key = f"{'float32' if m[1] == 'f' else 'float64'} R{m[2]}"
-            out[key] = {}
+            k = key(m[1])
+            if k:
+                out[k] = {}
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if key and m:
-            out[key].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
+        if k and m:
+            out[k].update(spill_stores=int(m[1]), spill_loads=int(m[2]))
         m = re.search(r"Used (\d+) registers", line)
-        if key and m:
-            out[key]["registers"] = int(m[1])
-            key = None
+        if k and m:
+            out[k]["registers"] = int(m[1])
+            m = re.search(r"(\d+) bytes smem", line)
+            if m:
+                out[k]["smem_bytes"] = int(m[1])
+            k = None
     return out
 
 
@@ -2358,6 +2373,13 @@ IC_TILE = 16384
 #: 16 KB
 NORM_SAMPLES = 2_504
 NORM_BINS = 15_195
+#: the kernel is also timed at these widths: one block (the chain alone,
+#: with its producers) and a few hundred samples
+NORM_TIMED_SAMPLES = (32, 500, NORM_SAMPLES)
+#: the dependent chain of one bin of csrc/indexcov_norm.cu, in SM cycles
+#: (assumed, not measured): the output o_j depends on o_{j-1} through five
+#: f32 adds, the multiply by float32(1/7) and the select, ~4 cycles each
+NORM_CYCLES_PER_BIN = 28
 #: run A (the reference's headline: 30 samples, reports), run B (cohort
 #: scale, -n), the kill-and-resume runs (30 samples, -n)
 IC_HEADLINE = 30
@@ -2409,6 +2431,14 @@ def norm_main_case(rng, n: int = NORM_SAMPLES, b: int = NORM_BINS):
     return depths, lengths, m, skip
 
 
+def _norm_tile() -> int:
+    """The kernel's bins a shared-memory stage (ops/norm_kernel.py::
+    TILE_BINS): NORM_EDGES' widths and lengths sit around a tile's edge."""
+    from goleft_tpu_torch.ops import norm_kernel as nk
+
+    return nk.TILE_BINS
+
+
 def _norm_synthetic(rng, n, b, lengths, pad=0.0):
     """Any (m, skip): the kernel is a function of them, so an edge case
     may smooth bins the reference's floor would skip."""
@@ -2436,6 +2466,56 @@ def _norm_width(b):
 def _norm_nonzero_padding(rng):
     lengths = rng.integers(0, 200, 40)
     return _norm_synthetic(rng, 40, 200, lengths, pad=1.0)
+
+
+def _norm_tile_width(d):
+    """A width d bins from the tile (T - 1, T, T + 1, T + 3): lanes of
+    length 0-8 and lanes ending 0-4 bins before the matrix."""
+    def case(rng):
+        b = _norm_tile() + d
+        return _norm_synthetic(rng, 14, b, np.r_[np.arange(9),
+                                                 b - np.arange(5)])
+    return case
+
+
+def _norm_lanes(n):
+    """n sample lanes: a block that is not full, or one lane past it."""
+    def case(rng):
+        b = 2 * _norm_tile() + 29
+        lengths = rng.integers(0, b + 1, n)
+        lengths[0] = b
+        return _norm_synthetic(rng, n, b, lengths)
+    return case
+
+
+def _norm_extreme_values(rng):
+    """Operands far from a depth's usual range: m of 3e-19 and 5e18, m = 0
+    at skipped bins, depths of 1e19 and 3e-19, and -0.0 (no result is
+    subnormal, and nothing sums to inf - inf)."""
+    b = 3 * _norm_tile() + 7
+    lengths = rng.integers(b // 2, b + 1, 40)
+    depths, lengths, m, skip = _norm_synthetic(rng, 40, b, lengths)
+    m[[5, 70, 140]] = np.float32(3e-19)
+    m[[9, 100]] = np.float32(5e18)
+    m[[20, 130]] = 0
+    skip[[20, 130]] = True
+    skip[[5, 9, 70, 100, 140]] = False
+    rows = rng.integers(0, 40, 18)
+    cols = rng.choice(np.r_[30:60, 160:180], 18, replace=False)
+    depths[rows[:6], cols[:6]] = np.float32(1e19)
+    depths[rows[6:12], cols[6:12]] = np.float32(3e-19)
+    depths[rows[12:], cols[12:]] = np.float32(-0.0)
+    return depths, lengths, m, skip
+
+
+def _norm_tile_edge_lengths(rng):
+    """Lengths ending 0-3 bins before, at and 1-3 bins past each of
+    three tile edges, on 40 lanes (a full block and part of a second)."""
+    tile = _norm_tile()
+    b = 3 * tile + 5
+    ends = [e * tile + d for e in (1, 2, 3) for d in range(-3, 4)]
+    lengths = np.r_[ends, rng.integers(0, b + 1, 40 - len(ends))]
+    return _norm_synthetic(rng, 40, b, np.minimum(lengths, b))
 
 
 def _norm_skip_runs(rng):
@@ -2470,6 +2550,15 @@ NORM_EDGES = {
     "width_1": _norm_width(1),
     "width_3": _norm_width(3),
     "width_7": _norm_width(7),
+    "width_tile_minus_1": _norm_tile_width(-1),
+    "width_tile": _norm_tile_width(0),
+    "width_tile_plus_1": _norm_tile_width(1),
+    "width_tile_plus_3": _norm_tile_width(3),
+    "lanes_1": _norm_lanes(1),
+    "lanes_31": _norm_lanes(31),
+    "lanes_33": _norm_lanes(33),
+    "tile_edge_lengths": _norm_tile_edge_lengths,
+    "extreme_values": _norm_extreme_values,
     "nonzero_padding": _norm_nonzero_padding,
     "skip_runs": _norm_skip_runs,
     "five_samples": _norm_five_samples,
@@ -2489,13 +2578,23 @@ def _bits_equal(got, want) -> bool:
 
 
 def norm_kernel_phase(dev) -> dict:
-    """indexcov_norm against its plain version on the card, bitwise, at
-    2,504 samples x 15,195 bins and on NORM_EDGES; the kernel's time
-    (CUDA events, median of 20), the plain version's (median of 3) and
-    the bytes bound."""
+    """indexcov_norm against its plain version on the card, bitwise, on
+    NORM_EDGES and on the first 32, 500 and 2,504 samples of the main case
+    (2,504 samples x 15,195 bins, the scalars of the whole cohort: each
+    width is a chunk of the main path); the kernel's time at each width
+    (CUDA events, median of 20), the plain version's at 2,504 (median of
+    3), both bounds and ptxas's report."""
     import torch
 
     from goleft_tpu_torch.ops import norm_kernel as nk
+
+    resources = kernel_resources(
+        nk.BUILD_LOG,
+        lambda name: "norm" if "norm_scan_kernel" in name else None)
+    resources = dict(resources.get("norm", {}), dynamic_smem_bytes=(
+        nk.launch_plan(1, 1)["smem_bytes"]))
+    log("indexcov_norm kernel (ptxas; the ring is dynamic shared memory): "
+        + json.dumps(resources))
 
     def on_card(case):
         d, ln, m, skip = case
@@ -2509,33 +2608,54 @@ def norm_kernel_phase(dev) -> dict:
         want = nk.apply_normalization_plain(*t)
         torch.cuda.synchronize()
         assert _bits_equal(got, want), f"indexcov_norm edge case {name}"
+    clock = sm_clock_hz()
     t0 = time.perf_counter()
-    main = norm_main_case(np.random.default_rng(2504))
+    d, ln, m, skip = norm_main_case(np.random.default_rng(2504))
     fab_s = time.perf_counter() - t0
-    t = on_card(main)
-    got = nk.norm_scan(*t)
-    want = nk.apply_normalization_plain(*t)
-    torch.cuda.synchronize()
-    assert _bits_equal(got, want), "indexcov_norm at 2,504 x 15,195"
-    assert torch.isfinite(got).all()
-    err = float((got - want).abs().max())
-    ms = cuda_median_ms(lambda: nk.norm_scan(*t), reps=20)
-    plain_ms = cuda_median_ms(lambda: nk.apply_normalization_plain(*t),
-                              reps=3)
-    n, b = main[0].shape
-    # each input read once, each output written once
-    nbytes = 2 * n * b * 4 + n * 4 + b * 4 + b
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    log(f"indexcov_norm: bitwise equal to its plain version on "
-        f"{len(NORM_EDGES)} edge cases and at {n} samples x {b} bins "
-        f"(ragged, fabricated in {fab_s:.1f} s); kernel {ms:.4f} ms "
-        f"(CUDA events, median of 20), plain version on the card "
-        f"{plain_ms:.1f} ms (median of 3), bound {bound_ms:.4f} ms "
-        f"({nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
-        f"{bound_ms / ms:.3f} of the bound")
-    return {"samples": n, "bins": b, "edge_cases": sorted(NORM_EDGES),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes", "bytes": nbytes, "max_abs_err": err}
+    b = d.shape[1]
+    widths = {}
+    for n in NORM_TIMED_SAMPLES:
+        t = on_card((d[:n], ln[:n], m, skip))
+        got = nk.norm_scan(*t)
+        want = nk.apply_normalization_plain(*t)
+        torch.cuda.synchronize()
+        assert _bits_equal(got, want), f"indexcov_norm at {n} x {b}"
+        assert torch.isfinite(got).all()
+        ms = cuda_median_ms(lambda: nk.norm_scan(*t), reps=20)
+        # each input read once, each output written once; per cell four
+        # divisions, six adds and a multiply
+        nbytes = 2 * n * b * 4 + n * 4 + b * 4 + b
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 11 * n * b / F32_OPS_PER_S * 1e3
+        w = {"ms": ms, "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "chain_bound_ms": b * NORM_CYCLES_PER_BIN / clock * 1e3,
+             "cycles_per_bin": ms * 1e-3 * clock / b,
+             "max_abs_err": float((got - want).abs().max()),
+             "plan": nk.launch_plan(n, b)}
+        if n == NORM_SAMPLES:
+            w["plain_ms"] = cuda_median_ms(
+                lambda: nk.apply_normalization_plain(*t), reps=3)
+        widths[n] = w
+        log(f"indexcov_norm at {n} samples x {b} bins: bitwise equal to "
+            f"its plain version; kernel {ms:.4f} ms (CUDA events, median "
+            f"of 20) = {w['cycles_per_bin']:.1f} cycles a bin at "
+            f"{clock / 1e6:.0f} MHz, {w['plan']['blocks']} blocks; bound "
+            f"{w['bound_ms']:.4f} ms ({w['bound_by']}: {nbytes / 1e6:.1f} "
+            f"MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s), dependence chain "
+            f"{w['chain_bound_ms']:.4f} ms ({b} bins x "
+            f"{NORM_CYCLES_PER_BIN} cycles); library: none"
+            + (f"; plain version on the card {w['plain_ms']:.1f} ms "
+               "(median of 3)" if "plain_ms" in w else ""))
+    main = widths[NORM_SAMPLES]
+    log(f"indexcov_norm: bitwise on {len(NORM_EDGES)} edge cases; main "
+        f"case ({NORM_SAMPLES} x {b}, ragged) fabricated in {fab_s:.1f} s")
+    return {"samples": NORM_SAMPLES, "bins": b,
+            "edge_cases": sorted(NORM_EDGES), "ptxas": resources,
+            "sm_clock_hz": clock,
+            "widths": {str(n): w for n, w in widths.items()},
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "chain_bound_ms", "max_abs_err")}}
 
 
 def indexcov_fabricate(d: str, n_ix: int, rng, contigs=HG38):
@@ -3116,7 +3236,11 @@ def main(argv=None) -> int:
         norm.update(status="pass", launches=ic["runs"]["B"]["launches"],
                     max_abs_err=nres["max_abs_err"], ms=nres["ms"],
                     plain_ms=nres["plain_ms"], bound_ms=nres["bound_ms"],
-                    bound_by=nres["bound_by"])
+                    bound_by=nres["bound_by"],
+                    chain_bound_ms=nres["chain_bound_ms"],
+                    ms_by_samples={n: w["ms"]
+                                   for n, w in nres["widths"].items()},
+                    ptxas=nres["ptxas"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)

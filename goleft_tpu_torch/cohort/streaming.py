@@ -27,8 +27,12 @@ invariant under any contiguous chunking of the sample axis.
 
 ``apply_normalization`` is pass 2: the ``indexcov_norm`` CUDA kernel for
 CUDA tensors (ops/norm_kernel.py), its plain PyTorch version for CPU
-tensors. ``ops.indexcov_ops.normalize_across_samples`` lowers onto these
-same two passes, so chunked == monolithic is true by construction.
+tensors. It follows the reference's *answer*: the reference's source
+divides the 7-tap sum by 7.0, which XLA compiles to a multiply by
+float32(1/7), so pass 2 multiplies. ``NormStats.finalize``'s f64 ``/ 7.0``
+stays a division, because the reference's pass 1 is numpy and divides.
+``ops.indexcov_ops.normalize_across_samples`` lowers onto these same two
+passes, so chunked == monolithic is true by construction.
 """
 
 from __future__ import annotations

@@ -459,6 +459,27 @@ def test_indexcov_norm_kernel_equals_plain_on_card(name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_indexcov_norm_kernel_takes_a_skip_view_at_any_offset(offset):
+    """A ``skip[lo:hi]`` view whose data is not 4-byte aligned (the kernel
+    copies skip 4 bytes at a time): bitwise the plain version's answer."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import norm_kernel as nk
+
+    d, ln, m, skip = _norm_on_card(norm_edge_case("skip_runs"))
+    b = d.shape[1]
+    wide = torch.zeros(b + offset, dtype=torch.bool, device=skip.device)
+    wide[offset:] = skip
+    view = wide[offset:]
+    assert view.data_ptr() % 4 == offset % 4
+    got = nk.norm_scan(d, ln, m, view)
+    want = nk.apply_normalization_plain(d, ln, m, skip)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_run_indexcov_on_card_equals_cpu(tmp_path):
     """``run_indexcov`` on the card against its CPU path on eight
     fabricated .bai files (chr1-chr3, chrX, chrY): every output

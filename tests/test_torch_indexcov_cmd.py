@@ -20,7 +20,6 @@ of each library's choosing.
 import gzip
 import json
 import os
-import re
 import shutil
 
 import numpy as np
@@ -30,7 +29,6 @@ from chip_smoke import compare_indexcov_dirs as _compare_dirs
 from chip_smoke import ped_pcs
 from goleft_tpu.commands import indexcov as jic
 from goleft_tpu_torch.commands import indexcov as tic
-from goleft_tpu_torch.ops import indexcov_ops as tops
 from goleft_tpu_torch.resilience import faults as tfaults
 from helpers import random_reads, write_bam_and_bai
 from test_golden_indexcov import _build_bai
@@ -54,33 +52,14 @@ def _run_both(tmp_path, inputs, **kw):
     return ref, port, res
 
 
-def _port_scan(mat, lengths):
-    return tops.normalize_across_samples(np.asarray(mat, np.float32),
-                                         lengths, device="cpu").numpy()
-
-
-def _check_against_jax(tmp_path, monkeypatch, inputs, **kw):
+def _check_against_jax(tmp_path, inputs, **kw):
     """Both packages on ``inputs`` → the port's result, every output
-    compared. Under ``extra_normalize`` the port's scan divides by 7 where
-    XLA multiplies by float32(1/7) (tests/test_torch_indexcov_norm.py), so
-    the normalised depths differ in the last float32 digits: the depth
-    pages (%.5g points, PNG pixels) are then held against the JAX package
-    run with the port's scan in place of its own, byte for byte, and every
-    other output against the plain JAX package's."""
+    compared against the plain JAX package's, under ``extra_normalize``
+    the normalised depth pages and PNGs included (the port's scan
+    multiplies by float32(1/7), as XLA does)."""
     ref, port, res = _run_both(tmp_path, inputs, **kw)
-    if not kw.get("extra_normalize"):
-        _compare_dirs(ref, port)
-        return res
-    _compare_dirs(ref, port, skip=_DEPTH_PAGE)
-    same_scan = str(tmp_path / "same_scan" / "out")
-    with monkeypatch.context() as m:
-        m.setattr(jic.ops, "normalize_across_samples", _port_scan)
-        jic.run_indexcov(list(inputs), same_scan, **kw)
-    _compare_dirs(same_scan, port)
+    _compare_dirs(ref, port)
     return res
-
-
-_DEPTH_PAGE = re.compile(r"-depth-.*\.(html|png)$")
 
 
 CASES = {
@@ -95,9 +74,9 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_bam_cohort_outputs_match_jax(cohort, tmp_path, monkeypatch, case):
+def test_bam_cohort_outputs_match_jax(cohort, tmp_path, case):
     kw = CASES[case]
-    res = _check_against_jax(tmp_path, monkeypatch, cohort, **kw)
+    res = _check_against_jax(tmp_path, cohort, **kw)
     port = os.path.dirname(res["ped"])
     assert os.path.exists(res["bed"]) and os.path.exists(res["roc"])
     if kw.get("write_html", True):
@@ -224,9 +203,9 @@ def _crai_cohort(tmp_path, n: int = 6):
     {"exclude_patt": "", "include_gl": True, "write_html": False},
     {"chrom": "chr1", "extra_normalize": True, "write_png": False},
 ], ids=["n_includegl", "n_no_sex", "no_exclude", "n_chrom"])
-def test_crai_cohort_matches_jax(tmp_path, monkeypatch, kw):
+def test_crai_cohort_matches_jax(tmp_path, kw):
     paths, fai = _crai_cohort(tmp_path)
-    res = _check_against_jax(tmp_path, monkeypatch, paths, fai=fai, **kw)
+    res = _check_against_jax(tmp_path, paths, fai=fai, **kw)
     with gzip.open(res["bed"], "rt") as fh:
         header = fh.readline().rstrip("\n").split("\t")
         chroms = {line.split("\t")[0] for line in fh}
