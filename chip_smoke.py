@@ -129,7 +129,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
    version's, the bytes bound and the dependence chain's
    (NORM_CYCLES_PER_BIN);
 14. fabricates 500 whole-genome .bai files (hg38's 24 chromosomes at
-   their GRCh38 lengths, 188,457 bins a sample, sex planted) with an
+   their GRCh38 lengths, 188,457 bins a sample, sex planted, three latent
+   factors a sample planted: IC_FACTORS) with an
    .fai, and runs ``python -m goleft_tpu_torch indexcov`` in fresh
    processes: run A, the first 30 samples with the default flags and
    the reports, against a numpy oracle from the raw indexes (bed.gz,
@@ -141,7 +142,27 @@ Run from the root of a checkout, on a machine with one CUDA card:
    (byte-identical to an uninterrupted run, fewer launches) and resumed
    again (0 launches); prints each run's seconds, import seconds, seven
    stage totals and samples/s;
-15. prints the kernels line, the card's ``nvidia-smi`` name and power
+15. runs ``python -m goleft_tpu_torch cohortscan`` on phase 14's 500
+   .bai files in fresh processes, one after another, in chunks of 128
+   samples: run S with ``-n`` (22 x 4 indexcov_norm launches), its
+   bed.gz and ROC byte-identical to phase 14's run B and its .ped too
+   but the PC columns, equal up to sign; run P without ``-n``, its PCs
+   against a float64 oracle from the raw indexes on the card; the first
+   450 samples killed by ``shard:after=5:kill`` (the QC blocks of chr1's
+   four chunks committed) and resumed, then all 500 under ``--resume``
+   with ``--pca sharded``: exactly 50 x 24 QC blocks computed, the bytes
+   of run P but the PCs, and its PCs against the oracle and run P's
+   (each component that 32 power iterations resolve, within its
+   tolerance); prints each run's seconds, import seconds, stage totals
+   and samples/s;
+16. holds the depth kernel against its plain version on the card at
+   multidepth's shapes (one 5 Mb chunk of phase 4's BAM, dense, window
+   1, on both wires), then runs ``python -m goleft_tpu_torch multidepth``
+   on phase 12's 8 BAMs (one chunk: 8 depth launches) and on phase 4's
+   25 Mb BAM given twice (5 chunks: 10 launches, runs crossing chunk
+   boundaries), each byte-identical to the port's CPU path; prints the
+   seconds and sample-bp a second;
+17. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -185,8 +206,13 @@ E2E_BLOCKS = [[(0, 150)], [(0, 70), (80, 160)], [(0, 60), (360, 450)],
 PILE_POS, PILE_READS = 12_345_678, 3_000
 
 
+_T0 = time.perf_counter()
+
+
 def log(*a):
-    print(*a, flush=True)
+    """A progress line, stamped with the seconds since the script
+    started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s]", *a, flush=True)
 
 
 def cuda_median_ms(fn, reps: int = 20) -> float:
@@ -1493,16 +1519,12 @@ def sm_clock_hz() -> float:
     return float(r.stdout.strip().splitlines()[0]) * 1e6
 
 
-def rans_kernel_phase(dev, crams) -> dict:
+def rans_kernel_checks(dev) -> float:
     """The rANS kernel against its plain version, bitwise, on the flag
-    matrix and on one real 10,000-record container of each codec of the
-    cohort; the device decode (kernel + expansions + interleave) against
-    the data and the host decoder; a missing ORDER1 context must raise;
-    times and bounds of each container."""
-    import torch
-
+    matrix and on eight threads' ORDER1 launches; the device decode
+    against the data; a missing ORDER1 context must raise → the max
+    abs error."""
     from goleft_tpu_torch.io import rans_nx16 as rx
-    from goleft_tpu_torch.io.cram import M_RANSNX16
     from goleft_tpu_torch.ops import rans_device as rd
     from goleft_tpu_torch.ops import rans_kernel as rk
 
@@ -1549,15 +1571,33 @@ def rans_kernel_phase(dev, crams) -> dict:
     log(f"rans kernel: {n} ORDER1 launches of 2 to 256 contexts from eight "
         "threads on their own streams, at once, bitwise equal to the plain "
         f"version ({time.perf_counter() - t0:.1f} s)")
+    return max_err
+
+
+def rans_kernel_phase(dev, crams) -> dict:
+    """The rANS kernel against its plain version, bitwise, on the flag
+    matrix (rans_kernel_checks) and on one real 10,000-record container
+    of each codec of the cohort; the device decode (kernel + expansions +
+    interleave) against the data and the host decoder; times and bounds
+    of each container."""
+    import torch
+
+    from goleft_tpu_torch.io import rans_nx16 as rx
+    from goleft_tpu_torch.io.cram import M_RANSNX16
+    from goleft_tpu_torch.ops import rans_device as rd
+    from goleft_tpu_torch.ops import rans_kernel as rk
 
     out = {}
     clock = sm_clock_hz()
     # every group of each container against the plain version, run once
     # on the host CPU (on the card each of its rounds is a few dozen small
     # launches, minutes at 375,000 rounds), the three containers at once
-    # in worker processes while the card times the kernel
+    # in worker processes, started first (the ORDER1 container takes
+    # longest, about 100 s) while the card runs the checks and times the
+    # kernel
     pending = []
     with ProcessPoolExecutor(3, mp_context=mp.get_context("spawn")) as pool:
+        containers = []
         for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
             raws = [rb for rb in first_container_blocks(crams[k])
                     if rb.method == M_RANSNX16]
@@ -1567,6 +1607,9 @@ def rans_kernel_phase(dev, crams) -> dict:
             fut = pool.submit(rans_plain_on_host, [
                 (key, grp, {n: v.cpu() for n, v in t.items()})
                 for key, grp, t in groups])
+            containers.append((label, raws, cplans, groups, fut))
+        max_err = rans_kernel_checks(dev)
+        for label, raws, cplans, groups, fut in containers:
             t0 = time.perf_counter()
             dec = rd.decode_parsed(cplans, device=dev)
             for rb, g in zip(raws, dec):
@@ -2349,7 +2392,7 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
         f"stage seconds: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(em_stages.items())))
     return {"runs": runs, "cpu_s": cpu_s, "calls": len(calls),
-            "cohortdepth_launches": cd_launches,
+            "bams": bams, "cohortdepth_launches": cd_launches,
             "emdepth": {"wall_s": wall, "command_s": em_s,
                         "stage_seconds": em_stages,
                         "window_samples_per_s":
@@ -2385,6 +2428,12 @@ NORM_CYCLES_PER_BIN = 28
 IC_HEADLINE = 30
 IC_SAMPLES = 500
 IC_KILL = "shard:after=5:kill"
+#: planted on the fabricated cohort: three latent factors a sample
+#: (normal, these standard deviations of relative depth), each a sine wave
+#: along every chromosome, as batch and ancestry effects give a real
+#: cohort's PCA (over the autosomes) its leading components; the rest of
+#: the spectrum is the bins' independent noise
+IC_FACTORS = (0.06, 0.045, 0.03)
 IC_STAGES = ("index_load", "qc_launch", "qc_fetch", "bed_gz", "roc",
              "plots", "pca_ped_html")
 #: PCA columns and charts hold per component, up to sign, within this
@@ -2662,13 +2711,16 @@ def indexcov_fabricate(d: str, n_ix: int, rng, contigs=HG38):
     """Whole-genome .bai files and a ref.fa.fai into ``d``: a copy of
     bench.py's ``_fabricate_bai_cohort`` with sex planted (the chrX and
     chrY deltas halved for even samples, chrY deltas near zero for odd
-    ones) → (sorted .bai paths, fai path)."""
+    ones) and a cohort structure planted on every contig (IC_FACTORS)
+    → (sorted .bai paths, fai path)."""
     import struct
 
     fai = os.path.join(d, "ref.fa.fai")
     with open(fai, "w") as fh:
         for name, ln in contigs:
             fh.write(f"{name}\t{ln}\t6\t60\t61\n")
+    scores = rng.standard_normal((n_ix, len(IC_FACTORS))) \
+        * np.asarray(IC_FACTORS)
     for s in range(n_ix):
         male = s % 2 == 0
         blob = bytearray(b"BAI\x01") + struct.pack("<i", len(contigs))
@@ -2680,6 +2732,14 @@ def indexcov_fabricate(d: str, n_ix: int, rng, contigs=HG38):
             blob += struct.pack("<QQ", 40_000_000, 80_000)
             base = int(rng.integers(0, 1 << 30))
             deltas = rng.integers(20_000, 60_000, size=n_t).astype(np.int64)
+            # the factors on every contig alike, so that a sample's
+            # median and its chrX quantile move together and sex stays
+            # what was planted
+            t = np.arange(n_t) / max(n_t, 1)
+            waves = np.stack([np.sin(2 * np.pi * (k + 1) * t + k)
+                              for k in range(len(IC_FACTORS))])
+            deltas = (deltas * np.clip(1 + scores[s] @ waves, 0.2, None)
+                      ).astype(np.int64)
             if name in ("chrX", "chrY") and male:
                 deltas //= 2
             elif name == "chrY":
@@ -2776,7 +2836,12 @@ def pca_tolerances(mat, k: int) -> list:
     """Per-component shares (see PCA_GROWTH) from the float64 singular
     values of ``mat``'s column-centred copy, never below PCA_RTOL."""
     x = np.asarray(mat, np.float64)
-    sv = np.linalg.svd(x - x.mean(axis=0), compute_uv=False)
+    return sv_tolerances(np.linalg.svd(x - x.mean(axis=0),
+                                       compute_uv=False), k)
+
+
+def sv_tolerances(sv, k: int) -> list:
+    """pca_tolerances from the singular values ``sv`` (descending)."""
     eps = float(np.finfo(np.float32).eps)
     out = []
     for i in range(k):
@@ -2948,9 +3013,10 @@ def _ic_bytes(outdir: str) -> dict:
             for f in sorted(os.listdir(outdir))}
 
 
-def indexcov_phase(root: str, workdir: str) -> dict:
+def indexcov_phase(root: str, workdir: str):
     """``python -m goleft_tpu_torch indexcov`` on fabricated hg38 .bai
-    files in fresh processes (launch counts from --metrics-out): run A,
+    files in fresh processes (launch counts from --metrics-out) →
+    (results, (the .bai paths, the .fai, run B's output directory)): run A,
     30 samples with the reports, against a numpy oracle and the port's
     CPU path; run B, 500 samples with -n (22 indexcov_norm launches),
     its chr21 rows against the CPU path's -c chr21 -n; a 30-sample -n
@@ -3114,7 +3180,359 @@ def indexcov_phase(root: str, workdir: str) -> dict:
         f"the complete store; both byte-identical to run C ({full} "
         f"launches)")
     return {"fabricate_s": fab_s, "bins_a_sample": n_bins,
-            "pillow": pillow, "runs": runs}
+            "pillow": pillow, "runs": runs}, (bais, fai, out_b)
+
+
+# ---- cohortscan and multidepth phases ---------------------------------
+
+#: cohortscan's sample chunks: phase 14's 500 samples in 4 chunks
+CS_CHUNK = 128
+#: the kill and append runs: the first CS_FIRST samples, then all of them
+CS_FIRST = 450
+#: --pca sharded's power iterations (cohort/pca.py's default)
+CS_ITERS = 32
+CS_STAGES = ("index_load", "spill", "norm_scalars", "normalize",
+             "qc_blocks", "qc_dispatch", "bed_gz", "roc", "pca_ped")
+
+
+def scan_pca_oracle(bais, dev, k: int, contigs=HG38):
+    """cohortscan's PCA without -n from the raw indexes, in float64 on the
+    card: the autosomes' scaled depth (the oracle's own reading of the
+    .bai files and median), capped at CN 8 and uint16-quantized → (its
+    projections onto the top ``k`` right singular vectors, (samples, k),
+    every singular value of the centred matrix, descending)."""
+    import torch
+
+    rows = []
+    for p in bais:
+        sizes = _fab_sizes(p, len(contigs))
+        flat = np.sort(np.concatenate(sizes))
+        cum = np.cumsum(np.minimum(flat, flat[int(0.98 * len(flat))]))
+        idx = int(np.searchsorted(cum, int(cum[-1]) // 2, side="right"))
+        med = float(flat[min(idx, len(flat) - 1)])
+        d = np.concatenate([sz for (name, _), sz in zip(contigs, sizes)
+                            if name not in ("chrX", "chrY")])
+        d = np.minimum((d.astype(np.float64) / med).astype(np.float32),
+                       np.float32(50000))
+        rows.append((np.float32(65535.0 / 8.0)
+                     * np.minimum(d, np.float32(8.0))
+                     + np.float32(0.5)).astype(np.uint16))
+    x = torch.from_numpy(np.stack(rows)).to(dev).double()
+    xc = x - x.mean(dim=0)
+    evals, u = torch.linalg.eigh(xc @ xc.T)
+    sv = evals.flip(0).clamp_min(0).sqrt()
+    v = xc.T @ u.flip(1)[:, :k] / sv[:k]
+    return (x @ v).cpu().numpy(), sv.cpu().numpy()
+
+
+def sharded_tolerances(sv, k: int, n_bins: int,
+                       iters: int = CS_ITERS) -> list:
+    """Per component, the larger of sv_tolerances' share and the block
+    power iteration's own bound after ``iters`` steps on the Gram
+    operator: sqrt(n_bins) (the random start's angle) times
+    (sigma_{k+1} / sigma_j)^(2 iters). Where that bound reaches 1 the
+    iteration has not resolved the component (its singular value is not
+    separated from the (k+1)-th), and the share is infinite: the
+    component is not held."""
+    out = []
+    for j, t in enumerate(sv_tolerances(sv, k)):
+        bound = float(np.sqrt(n_bins) * (sv[k] / sv[j]) ** (2 * iters))
+        out.append(float("inf") if bound >= 1 else max(t, bound))
+    return out
+
+
+def _cs_run(root, d, name, what, args, env, n) -> dict:
+    """One ``python -m goleft_tpu_torch cohortscan`` run in a fresh
+    process → its seconds, stage totals, launches and QC counters (from
+    its --metrics-out run manifest)."""
+    rep_path = os.path.join(d, name + ".json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "cohortscan",
+                              *args], env)
+    if r.returncode != 0:
+        raise AssertionError(f"cohortscan {what} failed ({r.returncode}):"
+                             f"\n{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "cohortscan")
+    assert rep["native_io"], f"cohortscan {what}: no native library"
+    c = rep["metrics"]["counters"]
+    out = {"wall_s": wall, "command_s": cmd_s,
+           "import_s": rep["import_seconds"],
+           "stage_seconds": {k: stages.get(k, 0.0) for k in CS_STAGES},
+           "samples_per_s": n / cmd_s,
+           "launches": rep["kernel_launches"]["indexcov_norm"],
+           "computed": c.get("cohort.chrom_qc_samples_computed_total", 0),
+           "resumed": c.get("cohort.chrom_qc_samples_resumed_total", 0)}
+    log(f"cohortscan {what}: {n} samples; process wall {wall:.3f} s, "
+        f"command {cmd_s:.3f} s = {out['samples_per_s']:.2f} samples/s, "
+        f"import {out['import_s']:.3f} s; indexcov_norm launches "
+        f"{out['launches']}; QC blocks computed {out['computed']}, resumed "
+        f"{out['resumed']}; stage seconds: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in out["stage_seconds"].items()))
+    return out
+
+
+def _scan_files(outdir: str) -> dict:
+    """bed.gz (decompressed) and .roc bytes, and the .ped's path, of a
+    cohortscan or indexcov output directory named ``out``."""
+    import gzip
+
+    base = os.path.join(outdir, "out-indexcov")
+    with gzip.open(base + ".bed.gz", "rb") as fh:
+        bed = fh.read()
+    with open(base + ".roc", "rb") as fh:
+        roc = fh.read()
+    return {"bed": bed, "roc": roc, "ped": base + ".ped"}
+
+
+def _same_scan(what: str, want: dict, got: dict, rtol=PCA_RTOL) -> bool:
+    """bed.gz and .roc byte-identical, the .ped but its PC columns too,
+    the PCs up to sign within ``rtol`` → whether the .ped is
+    byte-identical as well."""
+    assert got["bed"] == want["bed"], f"{what}: bed.gz differs"
+    assert got["roc"] == want["roc"], f"{what}: .roc differs"
+    _compare_ped(want["ped"], got["ped"], rtol)
+    with open(want["ped"], "rb") as a, open(got["ped"], "rb") as b:
+        return a.read() == b.read()
+
+
+def _journal_blocks(ck: str) -> int:
+    with open(os.path.join(ck, "journal.jsonl")) as fh:
+        return sum(1 for line in fh if line.strip() and '"k"' in line)
+
+
+def cohortscan_phase(root: str, workdir: str, bais, fai, out_b, dev) -> dict:
+    """``python -m goleft_tpu_torch cohortscan`` on phase 14's .bai files
+    in fresh processes, chunks of CS_CHUNK samples: run S with -n (one
+    indexcov_norm launch an autosome and chunk) against phase 14's run B;
+    run P without -n, its PCs against a float64 oracle; the first
+    CS_FIRST samples killed by IC_KILL and resumed, then all of them
+    appended under --resume with --pca sharded (exactly the new samples'
+    QC blocks computed): byte-identical to run P but the PCs, which hold
+    against the oracle and run P's within the power iteration's
+    tolerances."""
+    d = os.path.join(workdir, "cohortscan")
+    os.makedirs(d)
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    n = len(bais)
+    n_chunks = -(-n // CS_CHUNK)
+    autosomes = sum(1 for name, _ in HG38 if name not in ("chrX", "chrY"))
+    chroms = len(HG38)
+    base = ["--fai", fai, "--chunk-samples", str(CS_CHUNK)]
+    runs = {}
+
+    # run S: -n, the exact PCA: indexcov -n's bytes (phase 14's run B)
+    out_s = os.path.join(d, "S", "out")
+    runs["S"] = _cs_run(root, d, "S", "run S (-n)",
+                        ["-d", out_s, "-n", *base, *bais], env, n)
+    assert runs["S"]["launches"] == autosomes * n_chunks, runs["S"]
+    assert runs["S"]["computed"] == n * chroms, runs["S"]
+    ped_same = _same_scan("run S against indexcov -n (run B)",
+                          _scan_files(out_b), _scan_files(out_s))
+    ped = "byte-identical" if ped_same else \
+        "byte-identical but its PC columns, equal up to sign"
+    log(f"run S: bed.gz and .roc byte-identical to indexcov -n (phase 14's "
+        f"run B), the .ped {ped}; {runs['S']['launches']} indexcov_norm "
+        f"launches = {autosomes} autosomes x {n_chunks} chunks")
+
+    # run P: without -n, the exact PCA: the bytes the appended store must
+    # give; its PCs against the float64 oracle
+    out_p = os.path.join(d, "P", "out")
+    runs["P"] = _cs_run(root, d, "P", "run P (without -n)",
+                        ["-d", out_p, *base, *bais], env, n)
+    assert runs["P"]["launches"] == 0, runs["P"]
+    assert runs["P"]["computed"] == n * chroms, runs["P"]
+    t0 = time.perf_counter()
+    k = min(5, n)
+    pcs, sv = scan_pca_oracle(bais, dev, k, HG38)
+    n_bins = sum(ln // IC_TILE - 1 for name, ln in HG38
+                 if name not in ("chrX", "chrY"))
+    tol_exact = sv_tolerances(sv, k)
+    tol_sharded = sharded_tolerances(sv, k, n_bins)
+    files_p = _scan_files(out_p)
+    err_p = pcs_up_to_sign(ped_pcs(files_p["ped"]), pcs,
+                           "run P PCs (exact) against the float64 oracle",
+                           tol_exact)
+    oracle_s = time.perf_counter() - t0
+    log(f"run P: PC errors over each component's scale against the float64 "
+        f"oracle ({oracle_s:.1f} s) "
+        + ", ".join(f"{e:.2e}" for e in err_p) + "; tolerances "
+        + ", ".join(f"{t:.2e}" for t in tol_exact) + "; singular values "
+        + ", ".join(f"{v:.6g}" for v in sv[:k + 1]))
+
+    # the first CS_FIRST samples killed, resumed, then all of them
+    # appended with --pca sharded
+    ck = os.path.join(d, "ck")
+    out_a = os.path.join(d, "A", "out")
+    first = bais[:CS_FIRST]
+    ck_args = ["-d", out_a, *base, "--checkpoint-dir", ck]
+    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "cohortscan",
+                           *ck_args, *first], env)
+    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+    # the kill fires on the 5th Step; Steps go chromosome by chromosome,
+    # chunk by chunk, and a chromosome's chunks are the same everywhere
+    sizes = [min(CS_CHUNK, CS_FIRST - lo)
+             for lo in range(0, CS_FIRST, CS_CHUNK)]
+    steps = [sz for _ in HG38 for sz in sizes]
+    kill_at = int(IC_KILL.split("after=")[1].split(":")[0])
+    committed = _journal_blocks(ck)
+    assert committed == sum(steps[:kill_at - 1]), committed
+    runs["K"] = _cs_run(root, d, "K", f"the first {CS_FIRST}, resumed "
+                        f"after {IC_KILL}", [*ck_args, "--resume", *first],
+                        env, CS_FIRST)
+    assert (runs["K"]["computed"], runs["K"]["resumed"]) == \
+        (CS_FIRST * chroms - committed, committed), runs["K"]
+    runs["A"] = _cs_run(root, d, "A", f"all {n}, appended under --resume "
+                        "with --pca sharded",
+                        [*ck_args, "--resume", "--pca", "sharded", *bais],
+                        env, n)
+    assert (runs["A"]["computed"], runs["A"]["resumed"]) == \
+        ((n - CS_FIRST) * chroms, CS_FIRST * chroms), runs["A"]
+
+    from goleft_tpu_torch.cohort.manifest import CohortManifest
+
+    man = CohortManifest.load(os.path.join(out_a,
+                                           "out-indexcov.manifest.json"))
+    assert (man.counters["samples_new"], man.counters["samples_unchanged"],
+            man.counters["chrom_qc_samples_computed_total"]) == \
+        (n - CS_FIRST, CS_FIRST, (n - CS_FIRST) * chroms), man.counters
+    files_a = _scan_files(out_a)
+    _same_scan("run A (appended, --pca sharded) against run P (exact)",
+               files_p, files_a, tol_sharded)
+    err_a = pcs_up_to_sign(ped_pcs(files_a["ped"]), pcs,
+                           "run A PCs (--pca sharded) against the float64 "
+                           "oracle", tol_sharded)
+    log(f"kill and append: killed by {IC_KILL} (rc -9) with {committed} QC "
+        f"blocks committed, resumed, then {n - CS_FIRST} samples appended: "
+        f"{runs['A']['computed']} QC blocks computed = {n - CS_FIRST} x "
+        f"{chroms} chromosomes, {runs['A']['resumed']} resumed; bed.gz, .roc "
+        f"and the .ped but its PCs byte-identical to run P; --pca sharded "
+        f"PC errors against the float64 oracle "
+        + ", ".join(f"{e:.2e}" for e in err_a) + "; tolerances "
+        + ", ".join(f"{t:.2e}" for t in tol_sharded))
+    return {"chunks": n_chunks, "ped_byte_identical": ped_same,
+            "committed_at_kill": committed, "pc_err_sharded": err_a,
+            "pc_err_exact": err_p, "pca_rtol_sharded": tol_sharded,
+            "pca_rtol_exact": tol_exact, "oracle_s": oracle_s,
+            "singular_values": [float(v) for v in sv[:k + 1]],
+            "runs": runs}
+
+
+#: multidepth's per-base cap and MAPQ cutoff (the command's defaults)
+MD_MAX_COV = 1000
+MD_MAPQ = 10
+
+
+def multidepth_kernel_check(dev, bam: str, start: int, end: int) -> dict:
+    """The depth kernel at one multidepth chunk's shapes (dense, window 1,
+    the chunk as the region, cap MD_MAX_COV) on both wires, against its
+    plain version on the card on the same inputs: depth and window-1
+    sums bitwise; the kernel's and the plain version's ms."""
+    import torch
+
+    from goleft_tpu_torch.commands.depth import _decode_shard_segments
+    from goleft_tpu_torch.io.bai import read_bai
+    from goleft_tpu_torch.io.bam import open_bam_file
+    from goleft_tpu_torch.ops import depth_kernel as dk
+    from goleft_tpu_torch.ops.coverage import pack_segments_u16
+
+    ss, ee = _decode_shard_segments(open_bam_file(bam),
+                                    read_bai(bam + ".bai"), 0, start, end,
+                                    MD_MAPQ)
+    length = end - start
+    scal = (start, start, end, MD_MAX_COV, 0, 0)
+    dd, ll, base, _ = pack_segments_u16(ss, ee, slice(None))
+    wire = (torch.from_numpy(dd).to(dev), torch.from_numpy(ll).to(dev))
+    seg = (torch.from_numpy(ss).to(dev), torch.from_numpy(ee).to(dev),
+           torch.ones(len(ss), dtype=torch.bool, device=dev))
+    out = {"segments": int(len(ss)), "length": length}
+    # the bound counts the bytes multidepth needs: each segment read once
+    # (4 B on the u16 wire; start, end and the mask on the int32 one) and
+    # the int32 depth written once; the dense output also carries the
+    # classes, the window-1 sums and the packed classes, which multidepth
+    # does not read
+    for name, kern, plain, args, seg_bytes in (
+            ("u16", dk.fused_depth_wire, dk.fused_depth_wire_plain,
+             (*wire, int(base)), 4),
+            ("int32", dk.fused_depth, dk.fused_depth_plain, seg, 9)):
+        got = kern(*args, *scal, length=length, window=1, dense=True)
+        want = plain(*args, *scal, length, 1)
+        assert torch.equal(got[3], want[3]), f"multidepth {name}: depth"
+        assert torch.equal(got[0], want[0]), f"multidepth {name}: sums"
+        nbytes = seg_bytes * len(ss) + 4 * length
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = (8 * length + 10 * len(ss)) / INT_OPS_PER_S * 1e3
+        out[name] = {
+            "ms": cuda_median_ms(lambda: kern(*args, *scal, length=length,
+                                              window=1, dense=True)),
+            "plain_ms": cuda_median_ms(lambda: plain(*args, *scal, length,
+                                                     1), reps=5),
+            "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
+
+
+def _md_run(root, workdir, name, what, bams, n_bp, env, dev) -> dict:
+    """``python -m goleft_tpu_torch multidepth -c chr1`` in a fresh
+    process against the port's ``run_multidepth(device="cpu")``."""
+    import io
+
+    from goleft_tpu_torch.commands.multidepth import run_multidepth
+
+    rep_path = os.path.join(workdir, f"md_{name}.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "multidepth", "-c",
+                              "chr1", *bams], env)
+    if r.returncode != 0:
+        raise AssertionError(f"multidepth {what} failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "multidepth")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    run_multidepth(bams, "chr1", out=buf, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _diff_rows(f"multidepth {what} (card against the CPU path)", r.stdout,
+               buf.getvalue())
+    out = {"wall_s": wall, "command_s": cmd_s,
+           "import_s": rep["import_seconds"], "cpu_s": cpu_s,
+           "launches": rep["kernel_launches"]["depth"],
+           "rows": len(r.stdout.splitlines()) - 1,
+           "sample_bp_per_s": len(bams) * n_bp / cmd_s}
+    log(f"multidepth {what}: {len(bams)} samples x {n_bp} bp; process wall "
+        f"{wall:.3f} s, command {cmd_s:.3f} s = "
+        f"{out['sample_bp_per_s'] / 1e6:.3f} M sample-bp/s, import "
+        f"{out['import_s']:.3f} s; depth launches {out['launches']}; "
+        f"{out['rows']} blocks, byte-identical to the CPU path "
+        f"({cpu_s:.1f} s)")
+    return out
+
+
+def multidepth_phase(root: str, workdir: str, dev, cnv_bams,
+                     bam: str) -> dict:
+    """The depth kernel at multidepth's shapes, then ``python -m
+    goleft_tpu_torch multidepth`` on phase 12's BAMs (one 4 Mb chunk:
+    a launch a sample) and on phase 4's 25 Mb BAM given twice (5 chunks:
+    runs crossing chunk boundaries), each byte-identical to the port's
+    CPU path."""
+    from goleft_tpu_torch.commands.multidepth import CHUNK
+
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    kern = multidepth_kernel_check(dev, bam, CHUNK, 2 * CHUNK)
+    log(f"depth kernel at multidepth's shapes ({kern['segments']} segments "
+        f"over {kern['length']} bases, dense, window 1): bitwise equal to "
+        f"the plain version on the card; "
+        + "; ".join(f"{w} wire {kern[w]['ms']:.4f} ms (plain "
+                    f"{kern[w]['plain_ms']:.4f}), bound "
+                    f"{kern[w]['bound_ms']:.4f} ms ({kern[w]['bound_by']}: "
+                    f"{kern[w]['bytes']} bytes, the int32 depth out)"
+                    for w in ("u16", "int32")))
+    runs = {"cnv": _md_run(root, workdir, "cnv", "on phase 12's BAMs",
+                           cnv_bams, CNV_LEN, env, dev),
+            "e2e": _md_run(root, workdir, "e2e", "on phase 4's BAM twice",
+                           [bam, bam], E2E_LEN, env, dev)}
+    assert runs["cnv"]["launches"] == len(cnv_bams) * -(-CNV_LEN // CHUNK)
+    assert runs["e2e"]["launches"] == 2 * -(-E2E_LEN // CHUNK)
+    assert runs["e2e"]["rows"] > 0 and runs["cnv"]["rows"] > 0
+    return {"kernel": kern, "runs": runs}
 
 
 def build_kernels(mods) -> dict:
@@ -3188,6 +3606,12 @@ def main(argv=None) -> int:
         results["kernel"] = kres = kernel_phase(dev)
         shutil.rmtree(workdir, ignore_errors=True)
         os.makedirs(workdir)
+        # the Python processes this script starts share one bytecode
+        # cache in the work directory: where the installed packages carry
+        # none and writing it is turned off (PYTHONDONTWRITEBYTECODE),
+        # each process would compile torch's modules again, ~2 s apiece
+        os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+        os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(workdir, "pycache")
         results["e2e"], depth_fixture = e2e_phase(root, workdir)
         e2e = results["e2e"]
         main_wire = kres["u16"]  # the packed wire is the main path's
@@ -3232,8 +3656,16 @@ def main(argv=None) -> int:
                     bound_by=o0["bound_by"],
                     chain_bound_ms=o0["chain_bound_ms"])
         results["norm_kernel"] = nres = norm_kernel_phase(dev)
-        results["indexcov"] = ic = indexcov_phase(root, workdir)
+        results["indexcov"], ic_fixture = indexcov_phase(root, workdir)
+        ic = results["indexcov"]
+        results["cohortscan"] = cs = cohortscan_phase(root, workdir,
+                                                      *ic_fixture, dev)
+        results["multidepth"] = mdp = multidepth_phase(
+            root, workdir, dev, cnv["bams"], depth_fixture[0])
+        depth["multidepth_launches"] = {k: v["launches"]
+                                        for k, v in mdp["runs"].items()}
         norm.update(status="pass", launches=ic["runs"]["B"]["launches"],
+                    cohortscan_launches=cs["runs"]["S"]["launches"],
                     max_abs_err=nres["max_abs_err"], ms=nres["ms"],
                     plain_ms=nres["plain_ms"], bound_ms=nres["bound_ms"],
                     bound_by=nres["bound_by"],

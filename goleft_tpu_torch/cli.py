@@ -65,12 +65,18 @@ PROGS = {
             "number on the CUDA card", _lazy(".commands.cnv")),
     "cohortdepth": ("windowed depth matrix for a cohort of BAM/CRAM files "
                     "on the CUDA card", _lazy(".commands.cohortdepth")),
+    "cohortscan": ("streaming, incremental indexcov for biobank-scale "
+                   "cohorts on the CUDA card", _lazy(".commands.cohortscan")),
+    "dcnv": ("GC-debias + normalize a depth matrix",
+             _lazy(".commands.dcnv_cmd")),
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth")),
     "emdepth": ("EM copy-number calls from a depth matrix on the CUDA card",
                 _lazy(".commands.emdepth_cmd")),
     "indexcov": ("cohort coverage QC from BAM/CRAM indexes only on the "
                  "CUDA card", _lazy(".commands.indexcov")),
+    "multidepth": ("joint depth over many bams with min-coverage blocks "
+                   "on the CUDA card", _lazy(".commands.multidepth")),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
 }

@@ -148,11 +148,16 @@ class NormStats:
         keys bind when the QC input is the *normalized* matrix, so a
         cohort-composition change invalidates exactly the shards whose
         normalization actually moved."""
-        m, skip = self.finalize(n_bins)
-        h = hashlib.sha256()
-        h.update(m.tobytes())
-        h.update(np.packbits(skip).tobytes())
-        return h.hexdigest()[:16]
+        return scalars_digest(*self.finalize(n_bins))
+
+
+def scalars_digest(m: np.ndarray, skip: np.ndarray) -> str:
+    """The digest :meth:`NormStats.scalars_digest` takes of finalized
+    scalars ``(m, skip)``."""
+    h = hashlib.sha256()
+    h.update(m.tobytes())
+    h.update(np.packbits(skip).tobytes())
+    return h.hexdigest()[:16]
 
 
 def apply_normalization(depths: torch.Tensor, lengths: torch.Tensor,

@@ -1,6 +1,7 @@
 """CNV candidate intervals: the counterpart of the JAX package's
 models/candidates.py, trimmed to what ``pairhmm --candidates`` reads
-and what ``emdepth --candidates-out`` writes.
+and what ``emdepth --candidates-out`` and ``dcnv --candidates-out``
+write.
 
   - ``*.json``: ``{"schema": "goleft-tpu.cnv-candidates/1",
     "source": "<tool>", "candidates": [{chrom, start, end, sample, cn,
@@ -17,8 +18,16 @@ from __future__ import annotations
 
 import json
 
+import numpy as np
+
 SCHEMA = "goleft-tpu.cnv-candidates/1"
 _BED_MAGIC = "#goleft-tpu-candidates=1"
+
+#: the emdepth merge thresholds (models/emdepth.py _make_cnv): windows
+#: with log2 fold-change inside this open interval are "normal"
+LOG2FC_LO = -0.5
+LOG2FC_HI = 0.3
+MERGE_GAP = 30_000  # same 30kb gap rule the emdepth CNV merge uses
 
 
 def write_candidates(path: str, records, source: str) -> None:
@@ -112,3 +121,51 @@ def candidates_from_calls(results) -> list[dict]:
     return [{"chrom": c, "start": s, "end": e, "sample": smp,
              "cn": cn, "log2fc": fc}
             for c, s, e, smp, cn, fc in results]
+
+
+def candidates_from_matrix(chroms, starts, ends, norm, samples,
+                           lo: float = LOG2FC_LO,
+                           hi: float = LOG2FC_HI,
+                           gap: int = MERGE_GAP) -> list[dict]:
+    """Aberrant intervals straight from a normalized depth matrix —
+    the ``dcnv --candidates-out`` path (dcnv's output is scaled
+    coverage around 1.0, so log2 of the value IS the fold change vs
+    CN2). Per sample: flag windows with log2fc outside (lo, hi), merge
+    same-state runs closer than ``gap`` (the emdepth 30kb rule), and
+    report the run's mean fold change with CN = round(2·2^fc)."""
+    norm = np.asarray(norm, dtype=np.float64)
+    with np.errstate(divide="ignore"):
+        fc = np.log2(np.where(norm > 0, norm, np.nan))
+    out = []
+    for si, sample in enumerate(samples):
+        run = None  # [chrom, start, end, [fcs]]
+
+        def flush(run=None, _out=out, _sample=sample):
+            if run is None:
+                return
+            mean_fc = float(np.mean(run[3]))
+            _out.append({
+                "chrom": run[0], "start": run[1], "end": run[2],
+                "sample": _sample,
+                "cn": int(np.clip(round(2.0 * 2.0 ** mean_fc), 0, 8)),
+                "log2fc": mean_fc,
+            })
+
+        for b in range(len(chroms)):
+            v = fc[b, si]
+            flagged = np.isfinite(v) and not (lo < v < hi)
+            zero = not np.isfinite(v)  # depth 0 → full loss
+            if zero:
+                flagged, v = True, float(np.log2(2 ** LOG2FC_LO / 2))
+            if not flagged:
+                continue
+            c, s, e = str(chroms[b]), int(starts[b]), int(ends[b])
+            if run is not None and run[0] == c and s - run[2] < gap:
+                run[2] = e
+                run[3].append(v)
+            else:
+                flush(run)
+                run = [c, s, e, [v]]
+        flush(run)
+    out.sort(key=lambda r: (r["chrom"], r["start"], r["sample"]))
+    return out

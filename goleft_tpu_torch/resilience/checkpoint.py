@@ -40,12 +40,17 @@ import json
 import os
 import pickle
 import threading
+from concurrent.futures import ThreadPoolExecutor
+
 from ..obs import get_logger, get_registry
 
 log = get_logger("resilience.checkpoint")
 
 JOURNAL_NAME = "journal.jsonl"
 BLOCKS_DIR = "blocks"
+#: threads that write and fsync one put_many's blocks at once: the fsyncs
+#: overlap, and every block is still durable before the journal commit
+WRITE_THREADS = 8
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -262,7 +267,12 @@ class CheckpointStore:
         items = list(items)
         if not items:
             return
-        entries = [self._write_block(k, v) for k, v in items]
+        if len(items) == 1:
+            entries = [self._write_block(*items[0])]
+        else:
+            with ThreadPoolExecutor(min(WRITE_THREADS, len(items))) as pool:
+                entries = list(pool.map(lambda kv: self._write_block(*kv),
+                                        items))
         _fsync_dir(self._blocks)
         self._journal_commit(entries)
 

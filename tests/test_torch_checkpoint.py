@@ -63,6 +63,24 @@ def test_store_roundtrip_and_journal(tmp_path):
         assert st.get(("k", 2)) == "two"
 
 
+def test_put_many_journals_in_item_order_and_reads_back(tmp_path):
+    """put_many writes its blocks on WRITE_THREADS threads; the journal
+    still lists them in the order given, once each, and every block
+    reads back after a resume."""
+    d = str(tmp_path / "ck")
+    items = [(("blk", i), np.full(i + 1, i, np.float32)) for i in range(50)]
+    with CheckpointStore(d) as st:
+        st.put_many(items)
+    lines = [json.loads(x) for x in open(os.path.join(d, "journal.jsonl"))]
+    assert [r["k"] for r in lines] == [key_digest(k) for k, _ in items]
+    assert not [f for f in os.listdir(os.path.join(d, "blocks"))
+                if f.endswith(".tmp")]
+    with CheckpointStore(d, resume=True) as st:
+        assert st.completed_count == len(items)
+        for k, v in items:
+            np.testing.assert_array_equal(st.get(k), v)
+
+
 def test_store_fresh_open_truncates_journal(tmp_path):
     d = str(tmp_path / "ck")
     with CheckpointStore(d) as st:

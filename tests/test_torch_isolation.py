@@ -319,6 +319,131 @@ def test_cpu_indexcov_run_loads_no_jax(tmp_path):
         assert (tmp_path / "out" / f).stat().st_size > 0, f
 
 
+def test_cpu_cohortscan_run_loads_no_jax(tmp_path):
+    """Six whole-index .bai files through the port's cohortscan with
+    ``-n`` in chunks of 4, then an append of one sample under --resume
+    with the chunks sized from the journal, on the CPU, in a fresh
+    interpreter; then neither jax nor goleft_tpu
+    is loaded, and the slice's modules are."""
+    script = textwrap.dedent(f"""
+        import struct, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.cohort.scan import run_cohortscan
+        d = {str(tmp_path)!r}
+        lens = {{"chr1": 60 * 16384, "chrX": 30 * 16384, "chrY": 9 * 16384}}
+        with open(d + "/ref.fa.fai", "w") as fh:
+            for n, ln in lens.items():
+                fh.write(f"{{n}}\\t{{ln}}\\t6\\t60\\t61\\n")
+        rng = np.random.default_rng(3)
+        paths = []
+        for s in range(7):
+            blob = bytearray(b"BAI\\x01") + struct.pack("<i", len(lens))
+            for n, ln in lens.items():
+                deltas = rng.integers(36000, 44000, ln // 16384)
+                if n != "chr1" and s % 2 == 0:
+                    deltas //= 2
+                if n == "chrY" and s % 2:
+                    deltas = deltas // 1000
+                iv = (np.cumsum(deltas).astype(np.uint64) << np.uint64(16))
+                blob += struct.pack("<i", 1) + struct.pack("<Ii", 0x924A, 2)
+                blob += struct.pack("<QQQQ", 0, 0, 1000, 10)
+                blob += struct.pack("<i", len(iv)) + iv.astype("<u8").tobytes()
+            p = f"{{d}}/s{{s}}.bai"
+            open(p, "wb").write(bytes(blob))
+            paths.append(p)
+        kw = dict(fai=d + "/ref.fa.fai", extra_normalize=True,
+                  pca_mode="sharded", device="cpu")
+        first = run_cohortscan(paths[:6], d + "/out", chunk_samples=4, **kw)
+        res = run_cohortscan(paths, d + "/out", chunk_samples=0,
+                             resume=True, **kw)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        mods = [m for m in ("goleft_tpu_torch.cohort.manifest",
+                            "goleft_tpu_torch.cohort.pca",
+                            "goleft_tpu_torch.obs.memplane",
+                            "goleft_tpu_torch.ops.norm_kernel")
+                if m in sys.modules]
+        print("SEX", [int(0.5 + c) for c in res["sexes"]["chrX"]])
+        print("QC", first["qc"], res["qc"], res["diff"]["new"] == paths[6:])
+        print("MODS", len(mods))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "SEX [1, 2, 1, 2, 1, 2, 1]" in r.stdout, r.stdout
+    # -n: the append moves chr1's scalars, so chr1 recomputes all 7
+    assert ("QC {'computed': 18, 'resumed': 0} {'computed': 9, "
+            "'resumed': 12} True") in r.stdout, r.stdout
+    assert "MODS 4" in r.stdout and "LOADED []" in r.stdout, r.stdout
+    for f in ("out-indexcov.bed.gz", "out-indexcov.ped",
+              "out-indexcov.roc", "out-indexcov.manifest.json"):
+        assert (tmp_path / "out" / f).stat().st_size > 0, f
+
+
+def test_cpu_multidepth_and_dcnv_runs_load_no_jax(tmp_path):
+    """Three BAMs written with the port's BamWriter through the port's
+    multidepth on the CPU, then a depth matrix and a FASTA through its
+    dcnv, in a fresh interpreter; then neither jax nor goleft_tpu is
+    loaded."""
+    script = textwrap.dedent(f"""
+        import io, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.commands.dcnv_cmd import run_dcnv
+        from goleft_tpu_torch.commands.multidepth import run_multidepth
+        from goleft_tpu_torch.io.bai import build_bai, write_bai
+        from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+        d = {str(tmp_path)!r}
+        rng = np.random.default_rng(1)
+        paths = []
+        for k in range(3):
+            hdr = ("@HD\\tVN:1.6\\tSO:coordinate\\n"
+                   "@SQ\\tSN:chr1\\tLN:40000\\n"
+                   f"@RG\\tID:r\\tSM:s{{k}}\\n")
+            pos = np.sort(rng.integers(5000, 15000, 2000))
+            p = f"{{d}}/s{{k}}.bam"
+            with open(p, "wb") as fh:
+                with BamWriter(fh, hdr, ["chr1"], [40000]) as w:
+                    for i, s in enumerate(pos):
+                        w.write_record(0, int(s), parse_cigar("100M"),
+                                       name=f"r{{i}}")
+            write_bai(build_bai(p), p + ".bai")
+            paths.append(p)
+        buf = io.StringIO()
+        run_multidepth(paths, "chr1", out=buf, device="cpu")
+        rows = buf.getvalue().splitlines()
+        with open(d + "/r.fa", "w") as fh:
+            fh.write(">chr1\\n" + "ACGGT" * 8000 + "\\n")
+        m = rng.gamma(40, 1.0, size=(30, 4)).round(1)
+        with open(d + "/m.tsv", "w") as fh:
+            fh.write("#chrom\\tstart\\tend\\ta\\tb\\tc\\td\\n")
+            for w in range(30):
+                fh.write(f"chr1\\t{{w * 1000}}\\t{{w * 1000 + 1000}}\\t"
+                         + "\\t".join(str(v) for v in m[w]) + "\\n")
+        out = io.StringIO()
+        norm = run_dcnv(d + "/m.tsv", d + "/r.fa", out=out,
+                        candidates_out=d + "/c.tsv")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("MD", rows[0], len(rows) > 1, rows[1].split("\\t")[1])
+        print("DCNV", norm.shape, len(out.getvalue().splitlines()))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "MD #chrom\tstart\tend\ts0\ts1\ts2 True 5" in r.stdout, \
+        r.stdout
+    assert "DCNV (30, 4) 31" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_indexcov_default_run_needs_a_card(monkeypatch, tmp_path):
     """``run_indexcov`` without ``device`` asks for the card: without one
     it raises before it writes anything."""
@@ -474,7 +599,8 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
 
 
 def test_cli_lists_depth():
-    assert sorted(cli.PROGS) == ["cnv", "cohortdepth", "depth", "emdepth",
-                                 "indexcov", "pairhmm"]
+    assert sorted(cli.PROGS) == ["cnv", "cohortdepth", "cohortscan", "dcnv",
+                                 "depth", "emdepth", "indexcov",
+                                 "multidepth", "pairhmm"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
