@@ -6,10 +6,10 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py [--out FILE] [--trace-dir DIR]
 
 1. prints the card's provenance (torch / CUDA versions, name, power limit);
-2. builds the four hand-written kernels (csrc/depth_kernel.cu,
-   csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu, csrc/indexcov_norm.cu)
-   from the checkout, one nvcc each, started together, and prints the
-   build seconds and the ptxas reports;
+2. builds the five hand-written kernels (csrc/depth_kernel.cu,
+   csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu, csrc/indexcov_norm.cu,
+   csrc/swalign_kernel.cu) from the checkout, one nvcc each, started
+   together, and prints the build seconds and the ptxas reports;
 3. holds the depth kernel against its plain PyTorch version on the card at
    one full production shard (10 Mb, 2,000,000 segments of 150 bp, window
    250, max mean depth 100, cap 2600), on both wires and on the u16 wire
@@ -162,7 +162,31 @@ Run from the root of a checkout, on a machine with one CUDA card:
    25 Mb BAM given twice (5 chunks: 10 launches, runs crossing chunk
    boundaries), each byte-identical to the port's CPU path; prints the
    seconds and sample-bp a second;
-17. prints the kernels line, the card's ``nvidia-smi`` name and power
+17. holds the swalign kernel (csrc/swalign_kernel.cu, the mapper's
+   banded Smith-Waterman wavefront) against its plain version on the
+   card, bitwise in best score, best cell and every direction byte, on
+   a bucket of 4,096 pairs of 150 bp reads at the reference's band 32
+   (r1 161, w_pad 256), 8 pairs of 1,100 bp, 2 pairs of 2,000 bp (the
+   wavefront rows in device memory), B = 1, an all-N read, an
+   all-mismatch pair, a tie and a window length past the bucket's width,
+   and 64 pairs against ``sw_oracle``; prints the kernel's time, the
+   plain version's and the direction bits' copy to the host, and the
+   bound;
+18. runs ``python -m goleft_tpu_torch map --depth-out`` on 40,960
+   fabricated reads of 100-150 bp (both strands, substitutions, indels,
+   N's) against a 6 + 4 Mb reference at the reference's defaults: ≥ 95%
+   placed within ±5 bp on their strand, the first batch byte-identical
+   to the CPU path, the ``--from-tuples`` bed identical, the depth
+   kernel bitwise equal to its plain version at map's inputs (segments
+   in read order, int32 wire, dense, window 1) and the card's bed
+   byte-identical to the CPU path's on the same tuples, a transient
+   ``map`` fault retried to the same bytes, a corrupt FASTQ exit 3;
+   seeding on the card against the host oracle on 4,096 reads; prints
+   the command's time split (import, index build, seed, extend kernel,
+   direction copy, traceback, depth) and launches; then runs goleft's
+   six host tools (anonymize, samplename, covstats, indexsplit,
+   depthwed, cnveval) once each;
+19. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -190,10 +214,12 @@ MAX_MEAN = 100
 CAP = MAX_MEAN + 2500
 MIN_COV = 4
 READ_LEN = 150
-# H100 SXM data-sheet peaks: HBM bytes/s, and the float32 rate outside
-# the tensor cores, used for this kernel's 32-bit integer operations
+# H100 SXM peaks: HBM bytes/s (data sheet), and the int32 rate that the
+# depth, rANS, and swalign bounds divide their integer operations by:
+# 132 SMs x 64 INT32 lanes x 1.98 GHz boost (the data sheet's 67e12
+# float32 rate counts 128 lanes and two operations an FMA)
 HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12
+INT_OPS_PER_S = 132 * 64 * 1.98e9
 
 E2E_LEN = 25_000_000
 E2E_READS = 5_000_000
@@ -3535,6 +3561,442 @@ def multidepth_phase(root: str, workdir: str, dev, cnv_bams,
     return {"kernel": kern, "runs": runs}
 
 
+# ---- mapper phases: the swalign kernel, seeding, then the command ------
+
+#: the map phase's genome: two contigs cut from a human-sized reference
+MAP_CONTIGS = (("chr1", 6_000_000), ("chr2", 4_000_000))
+#: ten full batches of the reference's DEFAULT_BATCH (4,096 reads)
+MAP_READS = 40_960
+MAP_BATCH = 4096
+MAP_LEN = (100, 150)
+MAP_FAULT = "map:after=3:transient"
+MAP_CORRUPT_AT = 3000  # the corrupt record of the exit-3 run
+SW_B = 4096  # pairs of the kernel phase's main bucket (a batch)
+SW_BAND = 32  # the reference's DEFAULT_BAND: windows are read + 2 x band
+SW_ORACLE_PAIRS = 64
+
+
+def sw_pairs(rng, n: int, read_len: int):
+    """``n`` (read codes, window codes) pairs as the mapper extends them:
+    a window of read_len + 2 x band random bases and the read from its
+    middle, with two substitutions, one base inserted or deleted in half
+    of the reads and an N in a tenth of them."""
+    reads, wins = [], []
+    wlen = read_len + 2 * SW_BAND
+    for _ in range(n):
+        win = rng.integers(0, 4, wlen).astype(np.uint8)
+        read = win[SW_BAND:SW_BAND + read_len].copy()
+        read[rng.integers(0, read_len, 2)] = rng.integers(0, 4, 2)
+        if rng.random() < 0.5:
+            k = int(rng.integers(1, read_len - 1))
+            read = (np.concatenate([read[:k], rng.integers(0, 4, 1).astype(
+                np.uint8), read[k:-1]]) if rng.random() < 0.5
+                else np.concatenate([read[:k], read[k + 1:], win[
+                    SW_BAND + read_len:SW_BAND + read_len + 1]]))
+        if rng.random() < 0.1:
+            read[int(rng.integers(0, read_len))] = 4
+        reads.append(read)
+        wins.append(win)
+    return reads, wins
+
+
+def _sw_literal(read: bytes, win: bytes):
+    from goleft_tpu_torch.ops.pairhmm import encode_seq
+
+    return [encode_seq(read)], [encode_seq(win)]
+
+
+def sw_case(name: str):
+    """(reads_p, rlens, wins_p, wlens) of ``SW_CASES[name]``, packed as
+    ``ops/swalign.py::_pack_bucket`` packs a bucket."""
+    from goleft_tpu_torch.ops import swalign
+
+    reads, wins = SW_CASES[name](np.random.default_rng(len(name)))
+    r_pad = max(swalign.bucket_shape(len(r), 1)[0] for r in reads)
+    w_pad = max(swalign.bucket_shape(1, len(w))[1] for w in wins)
+    reads_p, rlens, wins_p, wlens = swalign._pack_bucket(
+        list(range(len(reads))), reads, wins, r_pad, w_pad)
+    if name == "wlen_past_pad":
+        # a window length past the bucket's width, which _pack_bucket
+        # never makes: the column is clipped to the last one, as the
+        # reference clips it
+        wlens = wlens + 20
+    return reads_p, rlens, wins_p, wlens
+
+
+#: the kernel phase's buckets; "main" is a batch of 150 bp reads at the
+#: reference's DEFAULT_BAND (r1 161, w_pad 256, 417 steps)
+SW_CASES = {
+    "main": lambda rng: sw_pairs(rng, SW_B, 150),
+    "long_1100bp": lambda rng: sw_pairs(rng, 8, 1100),  # r1 1121
+    "very_long_2000bp": lambda rng: sw_pairs(rng, 2, 2000),  # device rows
+    "b1": lambda rng: sw_pairs(rng, 1, 150),
+    "all_n_read": lambda rng: _sw_literal(b"N" * 150, b"ACGT" * 53),
+    "all_mismatch": lambda rng: _sw_literal(b"A" * 150, b"C" * 214),
+    "tie": lambda rng: _sw_literal(b"ACGT", b"ACGTTTTTACGT"),
+    "wlen_past_pad": lambda rng: _sw_literal(b"ACGTACGTACGT" + b"T" * 12,
+                                             b"ACGT" * 16),
+}
+
+
+def sw_kernel_phase(dev) -> dict:
+    """The swalign kernel against its plain version on the card, bitwise
+    in best, bi, bj and every direction byte, on every ``SW_CASES``
+    bucket, and 64 pairs of the main bucket against ``sw_oracle``; times
+    the kernel, the plain version and the direction bits' copy to pinned
+    host memory for the main bucket."""
+    import torch
+
+    from goleft_tpu_torch.ops import swalign
+    from goleft_tpu_torch.ops import swalign_kernel as sk
+
+    sc = torch.tensor(swalign.DEFAULT_SCORES.astuple(), dtype=torch.int32,
+                      device=dev)
+    out = {"cases": {}}
+    main_t = None
+    err = 0
+    for name in SW_CASES:
+        host = sw_case(name)
+        t = [torch.from_numpy(a).to(dev) for a in host] + [sc]
+        got = swalign.sw_bucket(*t)
+        torch.cuda.synchronize()
+        want = swalign.sw_bucket_plain(*t)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("best", "bi", "bj", "dirs"), got, want):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"swalign {name}: {what} differs from the plain "
+                    f"version at {int((g != w).sum())} entries")
+        b, r1 = host[0].shape
+        out["cases"][name] = {"pairs": b, "r1": r1, "w_pad": host[2].shape[1],
+                              "shared_rows": sk.launch_plan(r1)[1] == 0,
+                              "best_max": int(got[0].max())}
+        if name == "main":
+            main_t, main_got = t, [x.cpu().numpy() for x in got]
+        if name in ("all_n_read", "all_mismatch"):
+            assert int(got[0].max()) == 0, name
+        if name == "tie":
+            assert [int(x[0]) for x in got[:3]] == [8, 4, 4], name
+        if name == "wlen_past_pad":
+            assert int(got[2][0]) > host[2].shape[1], name
+    reads_p, rlens, wins_p, wlens = (x.cpu().numpy() for x in main_t[:4])
+    best, bi, bj, dirs = main_got
+    for n in range(SW_ORACLE_PAIRS):
+        r, w = int(rlens[n]), int(wlens[n])
+        ob, oi, oj, od = swalign.sw_oracle(reads_p[n, 1:r + 1],
+                                           wins_p[n, :w])
+        assert (int(best[n]), int(bi[n]), int(bj[n])) == (ob, oi, oj), n
+        assert np.array_equal(dirs[n, :r + w + 1, :r + 1], od), n
+        assert not dirs[n, r + w + 1:].any() and not dirs[n, :, r + 1:].any()
+    b, r1 = reads_p.shape
+    wcap = wins_p.shape[1]
+    steps = r1 + wcap
+    ms = cuda_median_ms(lambda: swalign.sw_bucket(*main_t))
+    plain_ms = cuda_median_ms(lambda: swalign.sw_bucket_plain(*main_t),
+                              reps=3)
+    dirs_dev = swalign.sw_bucket(*main_t)[3]
+    pinned = torch.empty(dirs_dev.shape, dtype=torch.uint8,
+                         pin_memory=True)
+    d2h_ms = cuda_median_ms(lambda: pinned.copy_(dirs_dev), reps=5)
+    lane_steps = b * (steps - 1) * r1
+    ops = lane_steps * sk.OPS_PER_LANE_STEP
+    moved = (b * r1 + b * wcap + 8 * b + 16) + (b * steps * r1 + 12 * b)
+    t_ops = ops / INT_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    out.update(ms=ms, plain_ms=plain_ms, dirs_d2h_ms=d2h_ms,
+               dirs_bytes=b * steps * r1, lane_steps=lane_steps,
+               bound_ms=max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               ops_ms=t_ops, bytes_ms=t_bytes, max_abs_err=err,
+               ptxas=kernel_resources(sk.BUILD_LOG, key=lambda n: "swalign"))
+    log(f"swalign kernel: bitwise equal to the plain version on the card "
+        f"on {len(SW_CASES)} buckets (" + ", ".join(
+            f"{k} {v['pairs']} x r1 {v['r1']} x w_pad {v['w_pad']}"
+            + ("" if v["shared_rows"] else " (rows in device memory)")
+            for k, v in out["cases"].items()) + "), "
+        f"{SW_ORACLE_PAIRS} pairs of the main bucket equal to sw_oracle; "
+        f"main bucket ({b} pairs, {steps} steps): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.2f} ms, direction bits to pinned host memory "
+        f"{d2h_ms:.4f} ms ({b * steps * r1} bytes); bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {lane_steps:.3g} "
+        f"lane-steps x {sk.OPS_PER_LANE_STEP} int ops at "
+        f"{INT_OPS_PER_S:.3g}/s = {t_ops:.4f} ms; {moved} bytes at "
+        f"{HBM_BYTES_PER_S:.3g}/s = {t_bytes:.4f} ms); ptxas "
+        + json.dumps(out["ptxas"]))
+    return out
+
+
+def map_fabricate(workdir: str, rng):
+    """The map phase's reference (``MAP_CONTIGS`` of random bases) and
+    ``MAP_READS`` reads of 100-150 bp on both strands, with two
+    substitutions each, an inserted or deleted base in a third of them
+    and an N in a tenth → (fasta, fastq, truth [(chrom, start, rev)],
+    FASTQ records as bytes)."""
+    contigs = {c: rng.integers(0, 4, n).astype(np.uint8)
+               for c, n in MAP_CONTIGS}
+    acgt = np.frombuffer(b"ACGTN", np.uint8)
+    fa = os.path.join(workdir, "map_ref.fa")
+    with open(fa, "wb") as fh:
+        for c, codes in contigs.items():
+            seq = acgt[codes].tobytes()
+            fh.write(f">{c}\n".encode())
+            fh.write(b"\n".join(seq[i:i + 60]
+                                for i in range(0, len(seq), 60)) + b"\n")
+    names = [c for c, _ in MAP_CONTIGS]
+    weights = np.array([n for _, n in MAP_CONTIGS], float)
+    which = rng.choice(len(names), MAP_READS, p=weights / weights.sum())
+    lens = rng.integers(MAP_LEN[0], MAP_LEN[1] + 1, MAP_READS)
+    comp = np.array([3, 2, 1, 0, 4], np.uint8)
+    truth, recs = [], []
+    for i in range(MAP_READS):
+        c = names[which[i]]
+        ln = int(lens[i])
+        s = int(rng.integers(0, len(contigs[c]) - ln - 1))
+        frag = contigs[c][s:s + ln + 1].copy()
+        frag[rng.integers(0, ln, 2)] = rng.integers(0, 4, 2)
+        u = rng.random()
+        k = int(rng.integers(10, ln - 10))
+        if u < 1 / 6:
+            frag = np.concatenate([frag[:k], [int(rng.integers(0, 4))],
+                                   frag[k:]])
+        elif u < 1 / 3:
+            frag = np.concatenate([frag[:k], frag[k + 1:]])
+        frag = frag[:ln]
+        if rng.random() < 0.1:
+            frag[int(rng.integers(0, ln))] = 4
+        rev = bool(rng.random() < 0.5)
+        if rev:
+            frag = comp[frag[::-1]]
+        seq = acgt[frag].tobytes()
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, seq, b"I" * ln))
+        truth.append((c, s, rev))
+    fq = os.path.join(workdir, "map_reads.fq")
+    with open(fq, "wb") as fh:
+        fh.write(b"".join(recs))
+    return fa, fq, truth, recs
+
+
+def _placed(rows: list[str], truth) -> int:
+    """Tuples within ±5 bp of their read's origin, on its strand."""
+    ok = 0
+    for row in rows:
+        chrom, s, _, name, _, strand = row.split("\t")
+        tc, ts, trev = truth[int(name[1:])]
+        ok += (chrom == tc and abs(int(s) - ts) <= 5
+               and strand == ("-" if trev else "+"))
+    return ok
+
+
+def _cli_in_process(argv: list[str]) -> tuple[int, str]:
+    """``goleft_tpu_torch.cli.main(argv)`` in this process (the index
+    cache of mapping/index.py is shared), stdout captured."""
+    import contextlib
+    import io
+
+    from goleft_tpu_torch import cli
+    from goleft_tpu_torch.resilience import faults
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        faults.install(None)
+    return rc, buf.getvalue()
+
+
+def map_phase(root: str, workdir: str, dev, tools_bam: str) -> dict:
+    """``python -m goleft_tpu_torch map --depth-out`` on ``MAP_READS``
+    fabricated reads against a 10 Mb reference at the reference's
+    defaults (k 13, w 8, band 32, max-occ 64, batch 4,096): ≥ 95% placed
+    within ±5 bp on their strand, the first batch's tuples byte-identical
+    to the port's CPU path, the ``--from-tuples`` bed byte-identical, the
+    depth kernel bitwise equal to its plain version at map's inputs and
+    the bed byte-identical to the CPU path's on the same tuples, a
+    transient ``map`` fault retried to the same bytes, a FASTQ corrupted
+    mid-stream exits 3 with the rows before it; seeding on the card held
+    to ``seed_reads_host`` on 4,096 reads; then goleft's six host tools
+    once each on earlier fixtures."""
+    import torch
+
+    from goleft_tpu_torch.commands.map_cmd import DEFAULT_WINDOW, run_map
+    from goleft_tpu_torch.mapping import get_index, pipeline
+    from goleft_tpu_torch.ops import depth_kernel as dk
+    from goleft_tpu_torch.ops.pairhmm import encode_seq
+
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    t0 = time.perf_counter()
+    fa, fq, truth, recs = map_fabricate(workdir, np.random.default_rng(41))
+    log(f"fabricated a {sum(n for _, n in MAP_CONTIGS)} bp reference and "
+        f"{MAP_READS} reads in {time.perf_counter() - t0:.1f} s")
+    tup = os.path.join(workdir, "map.tsv")
+    bed = os.path.join(workdir, "map.depth.bed")
+    rep_path = os.path.join(workdir, "map.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "map", fa, fq,
+                              "-o", tup, "--depth-out", bed], env)
+    if r.returncode != 0:
+        raise AssertionError(f"map failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "map")
+    launches = rep["kernel_launches"]
+    assert launches["swalign"] >= MAP_READS // MAP_BATCH, launches
+    assert launches["depth"] == len(MAP_CONTIGS), launches
+    with open(tup) as fh:
+        card = fh.read()
+    rows = card.splitlines()
+    placed = _placed(rows, truth)
+    assert placed >= 0.95 * MAP_READS, (placed, MAP_READS)
+    split = {k: stages.get(k, 0.0) for k in (
+        "index-build", "seed", "extend-kernel", "extend-d2h", "traceback",
+        "depth")}
+    split["import"] = rep["import_seconds"]
+    split["unattributed"] = cmd_s - sum(split.values())
+    log(f"map CLI: {MAP_READS} reads, {len(rows)} mapped, {placed} "
+        f"({100 * placed / MAP_READS:.2f}%) within ±5 bp on their strand; "
+        f"process wall {wall:.3f} s, command {cmd_s:.3f} s = "
+        f"{MAP_READS / cmd_s:.0f} reads/s; seconds " + ", ".join(
+            f"{k} {v:.3f}" for k, v in split.items())
+        + f"; launches swalign {launches['swalign']}, depth "
+        f"{launches['depth']}")
+
+    # the port's CPU path on the first batch, the fault and corrupt runs
+    # and the --from-tuples rerun, in this process on one index
+    t0 = time.perf_counter()
+    index = get_index(fa)
+    index_s = time.perf_counter() - t0
+    fq1 = os.path.join(workdir, "map_batch1.fq")
+    with open(fq1, "wb") as fh:
+        fh.write(b"".join(recs[:MAP_BATCH]))
+    first = "".join(row + "\n" for row in rows
+                    if int(row.split("\t")[3][1:]) < MAP_BATCH)
+    cpu_tup = os.path.join(workdir, "map_cpu.tsv")
+    t0 = time.perf_counter()
+    assert run_map(fa, fq1, out=cpu_tup, device="cpu") == 0
+    cpu_s = time.perf_counter() - t0
+    with open(cpu_tup) as fh:
+        _same_bytes("map: the first batch's tuples (card against the CPU "
+                    "path)", first, fh.read())
+    bed2 = os.path.join(workdir, "map.rerun.bed")
+    rc, _ = _cli_in_process(["map", fa, "--from-tuples", tup, "--depth-out",
+                             bed2])
+    assert rc == 0
+    with open(bed) as a, open(bed2) as b:
+        card_bed = a.read()
+        _same_bytes("map --from-tuples (against the fused --depth-out)",
+                    b.read(), card_bed)
+    # the depth kernel at map's own inputs (segments in read order on the
+    # int32 wire, dense, window 1, no cap, a 6 Mb and a 4 Mb contig):
+    # against its plain version on the card, then the card's bed against
+    # the CPU path's on the same tuples
+    t0 = time.perf_counter()
+    tuples = pipeline.parse_tuples(card.encode())
+    lengths = dict(MAP_CONTIGS)
+    depth_err, depth_segs = 0, {}
+    for chrom, clen, ss, se, keep in pipeline.depth_segments(tuples,
+                                                             lengths):
+        seg = [torch.from_numpy(a).to(dev) for a in (ss, se, keep)]
+        scal = (0, 0, clen, 0x7FFFFFFF, 0, 0)
+        got = dk.fused_depth(*seg, *scal, length=clen, window=1, dense=True)
+        want = dk.fused_depth_plain(*seg, *scal, clen, 1)
+        for what, g, w in (("depth", got[3], want[3]),
+                           ("sums", got[0], want[0])):
+            depth_err = max(depth_err, float((g.double() - w.double())
+                                             .abs().max()))
+            if not torch.equal(g, w):
+                raise AssertionError(
+                    f"map --depth-out {chrom}: the depth kernel's {what} "
+                    f"differ from its plain version at "
+                    f"{int((g != w).sum())} entries")
+        depth_segs[chrom] = int(keep.sum())
+    cpu_bed = pipeline.depth_bed_from_tuples(
+        tuples, lengths, DEFAULT_WINDOW, device="cpu").decode()
+    _same_bytes("map --depth-out (the card's bed against the CPU path's)",
+                card_bed, cpu_bed)
+    log(f"map --depth-out: the depth kernel bitwise equal to its plain "
+        f"version on the card at map's inputs ({depth_segs} segments in "
+        f"read order), the card's bed byte-identical to the CPU path's "
+        f"({time.perf_counter() - t0:.1f} s)")
+    faulty = os.path.join(workdir, "map_fault.tsv")
+    rc, _ = _cli_in_process(["--inject-faults", MAP_FAULT, "map", fa, fq1,
+                             "-o", faulty])
+    assert rc == 0, rc
+    with open(faulty) as fh:
+        _same_bytes(f"map under {MAP_FAULT}", fh.read(), first)
+    bad = os.path.join(workdir, "map_corrupt.fq")
+    with open(bad, "wb") as fh:
+        fh.write(b"".join(recs[:MAP_CORRUPT_AT]) + b"@bad\nACGT\n+\nII\n"
+                 + b"".join(recs[MAP_CORRUPT_AT:MAP_BATCH]))
+    bad_tup = os.path.join(workdir, "map_corrupt.tsv")
+    rc, _ = _cli_in_process(["map", fa, bad, "-o", bad_tup])
+    assert rc == 3, rc
+    with open(bad_tup) as fh:
+        _same_bytes("map on a corrupt FASTQ (the rows before it)",
+                    fh.read(), "".join(
+                        row + "\n" for row in first.splitlines()
+                        if int(row.split("\t")[3][1:]) < MAP_CORRUPT_AT))
+
+    # seeding on the card against the host oracle, one bucket of 4,096
+    codes = [encode_seq(rec.split(b"\n")[1]) for rec in recs]
+    idxs = [i for i, c in enumerate(codes) if len(c) > 128][:MAP_BATCH]
+    r_pad = 160
+    smax = pipeline._smax(r_pad, index.k, index.w)
+    host = pipeline._pack_reads_2bit(idxs, codes, r_pad)
+    pk, nm, rl = (torch.from_numpy(a).to(dev) for a in host)
+    kw = dict(r_pad=r_pad, k=index.k, w=index.w, max_occ=index.max_occ,
+              band=pipeline.DEFAULT_BAND, smax=smax)
+    tables = index.device_tables(dev)
+    s, d, rv = (x.cpu().numpy() for x in pipeline.seed_bucket(
+        pk, nm, rl, tables, **kw))
+    for row, i in enumerate(idxs):
+        want = pipeline.seed_reads_host(index, codes[i],
+                                        pipeline.DEFAULT_BAND, smax)
+        assert (int(s[row]), int(d[row]), bool(rv[row])) == want, i
+    seed_ms = cuda_median_ms(lambda: pipeline.seed_bucket(
+        pk, nm, rl, tables, **kw), reps=5)
+    log(f"map: first batch byte-identical to the CPU path ({cpu_s:.1f} s "
+        f"on the host, index {index_s:.1f} s), --from-tuples bed "
+        f"byte-identical, {MAP_FAULT} retried to the same bytes, a corrupt "
+        f"record at {MAP_CORRUPT_AT} exits 3 with the rows before it; "
+        f"seed_bucket on the card equal to seed_reads_host on "
+        f"{len(idxs)} reads of 129-150 bp ({seed_ms:.3f} ms a bucket)")
+
+    # goleft's host tools, once each (no device stage)
+    t0 = time.perf_counter()
+    truth_bed = os.path.join(workdir, "cnv_truth.bed")
+    calls_bed = os.path.join(workdir, "cnv_calls.bed")
+    with open(truth_bed, "w") as fh:
+        fh.write("chr1\t1000000\t1200000\t1\ts1\nchr1\t2500000\t2650000\t3"
+                 "\ts5\nchr2\t10000\t30000\t0\ts2,s3\n")
+    with open(calls_bed, "w") as fh:
+        fh.write("chr1\t1001000\t1199000\t1\ts1\nchr1\t2500000\t2600000\t3"
+                 "\ts5\nchr1\t5000000\t5050000\t1\ts4\n")
+    anon = os.path.join(workdir, "anon")
+    os.makedirs(anon, exist_ok=True)
+    # the fixture has no @RG: samplename reads anonymize's header
+    tools = {"anonymize": ["anonymize", "smoke", tools_bam, "-d", anon],
+             "samplename": ["samplename",
+                            os.path.join(anon, "sample_smoke_0001.bam")],
+             "covstats": ["covstats", tools_bam],
+             "indexsplit": ["indexsplit", "-n", "100", tools_bam],
+             "depthwed": ["depthwed", "-s", "1000", bed, bed2],
+             "cnveval": ["cnveval", truth_bed, calls_bed]}
+    tool_rows = {}
+    for name, argv in tools.items():
+        rc, text = _cli_in_process(argv)
+        assert rc == 0 and text, (name, rc)
+        tool_rows[name] = len(text.splitlines())
+    tools_s = time.perf_counter() - t0
+    log(f"goleft's host tools, each exit 0 ({tools_s:.1f} s): " + ", ".join(
+        f"{k} {v} lines" for k, v in tool_rows.items()))
+    return {"wall_s": wall, "command_s": cmd_s, "split_s": split,
+            "reads_per_s": MAP_READS / cmd_s, "mapped": len(rows),
+            "placed": placed, "launches": launches, "cpu_s": cpu_s,
+            "seed_ms": seed_ms, "tools_s": tools_s, "tool_rows": tool_rows,
+            "depth_max_abs_err": depth_err, "depth_segments": depth_segs}
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
@@ -3570,6 +4032,7 @@ def main(argv=None) -> int:
     from goleft_tpu_torch.ops import norm_kernel as nk
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
     from goleft_tpu_torch.ops import rans_kernel as rk
+    from goleft_tpu_torch.ops import swalign_kernel as sk
 
     prov = card_provenance()
     log("provenance: " + json.dumps(prov))
@@ -3577,10 +4040,10 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     built = build_kernels({"depth": dk, "pairhmm": pk, "rans": rk,
-                           "indexcov_norm": nk})
+                           "indexcov_norm": nk, "swalign": sk})
     log(f"kernels built in parallel in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()))
-    for mod in (dk, pk, rk, nk):
+    for mod in (dk, pk, rk, nk, sk):
         log(mod.BUILD_LOG.strip())
 
     blank = {"status": "fail", "launches": 0, "max_abs_err": None,
@@ -3599,7 +4062,11 @@ def main(argv=None) -> int:
                 source="goleft_tpu_torch/csrc/indexcov_norm.cu",
                 replaces="goleft_tpu/cohort/streaming.py:156 (lax.scan, "
                          "no Pallas)", **blank)
-    kernels = [depth, pairhmm, rans, norm]
+    swk = dict(name="swalign", route="cuda",
+               source="goleft_tpu_torch/csrc/swalign_kernel.cu",
+               replaces="goleft_tpu/ops/swalign.py:82 (XLA fori_loop, "
+                        "no Pallas)", **blank)
+    kernels = [depth, pairhmm, rans, norm, swk]
     results = {"provenance": prov, "build_s": built}
     workdir = os.path.join(root, "build", "chip_smoke")
     try:
@@ -3673,6 +4140,16 @@ def main(argv=None) -> int:
                     ms_by_samples={n: w["ms"]
                                    for n, w in nres["widths"].items()},
                     ptxas=nres["ptxas"])
+        results["sw_kernel"] = sres = sw_kernel_phase(dev)
+        results["map"] = mres = map_phase(root, workdir, dev,
+                                          depth_fixture[0])
+        depth["map_launches"] = mres["launches"]["depth"]
+        depth["map_max_abs_err"] = mres["depth_max_abs_err"]
+        swk.update(status="pass", launches=mres["launches"]["swalign"],
+                   max_abs_err=sres["max_abs_err"], ms=sres["ms"],
+                   plain_ms=sres["plain_ms"], bound_ms=sres["bound_ms"],
+                   bound_by=sres["bound_by"],
+                   dirs_d2h_ms=sres["dirs_d2h_ms"], ptxas=sres["ptxas"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,24 +61,38 @@ def _lazy(module: str):
 
 
 PROGS = {
+    "anonymize": ("make shareable header-only bam+bai fixtures",
+                  _lazy(".commands.anonymize")),
     "cnv": ("CNV calls straight from BAMs: cohort depth matrix + EM copy "
             "number on the CUDA card", _lazy(".commands.cnv")),
     "cohortdepth": ("windowed depth matrix for a cohort of BAM/CRAM files "
                     "on the CUDA card", _lazy(".commands.cohortdepth")),
     "cohortscan": ("streaming, incremental indexcov for biobank-scale "
                    "cohorts on the CUDA card", _lazy(".commands.cohortscan")),
+    "cnveval": ("evaluate CNV calls against a truth set",
+                _lazy(".commands.cnveval_cmd")),
+    "covstats": ("coverage and insert-size statistics by sampling",
+                 _lazy(".commands.covstats")),
     "dcnv": ("GC-debias + normalize a depth matrix",
              _lazy(".commands.dcnv_cmd")),
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth")),
+    "depthwed": ("matricize depth bed files to n-sites * n-samples",
+                 _lazy(".commands.depthwed")),
     "emdepth": ("EM copy-number calls from a depth matrix on the CUDA card",
                 _lazy(".commands.emdepth_cmd")),
     "indexcov": ("cohort coverage QC from BAM/CRAM indexes only on the "
                  "CUDA card", _lazy(".commands.indexcov")),
+    "indexsplit": ("create regions of even data size across bams/crams",
+                   _lazy(".commands.indexsplit")),
+    "map": ("map FASTQ reads: minimizer seeding + banded "
+            "Smith-Waterman on the CUDA card", _lazy(".commands.map_cmd")),
     "multidepth": ("joint depth over many bams with min-coverage blocks "
                    "on the CUDA card", _lazy(".commands.multidepth")),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
+    "samplename": ("report samples in a bam file",
+                   _lazy(".commands.samplename")),
 }
 
 _VALUE_FLAGS = {"--trace-out": "trace_out",
@@ -180,7 +194,8 @@ def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
                     seconds: float, trace_id: str | None) -> None:
     from .io import native
     from .obs.manifest import write_manifest
-    from .ops import depth_kernel, norm_kernel, pairhmm_kernel, rans_kernel
+    from .ops import (depth_kernel, norm_kernel, pairhmm_kernel, rans_kernel,
+                      swalign_kernel)
 
     try:
         write_manifest(
@@ -192,7 +207,8 @@ def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
                    "kernel_launches": {**depth_kernel.LAUNCHES,
                                        **pairhmm_kernel.LAUNCHES,
                                        **rans_kernel.LAUNCHES,
-                                       **norm_kernel.LAUNCHES},
+                                       **norm_kernel.LAUNCHES,
+                                       **swalign_kernel.LAUNCHES},
                    "native_io": native.get_lib() is not None})
     except OSError as e:
         print(f"goleft-tpu-torch: could not write --metrics-out: {e}",

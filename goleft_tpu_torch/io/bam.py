@@ -4,8 +4,9 @@ A copy of the JAX package's io/bam.py trimmed to what ``depth`` uses on
 BAM input: header parsing, record decode into columnar arrays, the lazy
 native region-streaming handle whose ``read_segments`` feeds the depth
 kernel and whose ``window_reduce`` gives cohortdepth's hybrid engine its
-exact window sums, the pure-Python fallback adapter, and the record
-writer used to fabricate test fixtures. CRAM input opens as io/cram.py's
+exact window sums, the whole-stream ``stream_columns`` that covstats
+samples, the pure-Python fallback adapter, and the record writer used
+to fabricate test fixtures. CRAM input opens as io/cram.py's
 CramFile.
 
 CIGAR op semantics (spec table): M/=/X consume query+ref, D/N consume ref
@@ -217,6 +218,7 @@ class BamReader:
         tid: int | None = None,
         start: int = 0,
         end: int | None = None,
+        max_records: int | None = None,
     ) -> ReadColumns:
         """Decode records into columnar arrays.
 
@@ -283,6 +285,8 @@ class BamReader:
                 seg_s.append(int(bs))
                 seg_e.append(int(bs + ln))
                 seg_r.append(row)
+            if max_records is not None and n >= max_records:
+                break
         return ReadColumns(
             np.asarray(tids, dtype=np.int32),
             np.asarray(poss, dtype=np.int32),
@@ -433,6 +437,38 @@ class BamFile:
                 return _cols_from_decode(out)
             b1 = min(b1 + max(b1 - b0, 64), nb)
 
+    def stream_columns(self, window_bytes: int = 1 << 24):
+        """Yield ReadColumns chunks over the whole record stream in order,
+        inflating only the current BGZF block window: peak host memory is
+        O(window), not O(file), as in the reference's streaming loop
+        (covstats/covstats.go:122-220)."""
+        from . import native
+
+        nb = len(self._co)
+        u_off = self._body_start  # absolute uncompressed cursor
+        while u_off < self._total:
+            b0 = int(np.searchsorted(self._uo, u_off, side="right")) - 1
+            b0 = max(b0, 0)
+            in_block = u_off - int(self._uo[b0])
+            b1 = int(np.searchsorted(
+                self._uo, int(self._uo[b0]) + in_block + window_bytes,
+                side="left"))
+            b1 = min(max(b1, b0 + 1), nb)
+            c0 = int(self._co[b0])
+            c_end = int(self._co[b1]) if b1 < nb else len(self._comp)
+            cap = (int(self._uo[b1]) if b1 < nb else self._total) \
+                - int(self._uo[b0])
+            body = native.bgzf_inflate_range(self._comp, c0, c_end, cap)
+            out = native.bam_decode(body, in_block, -1, 0, -1)
+            if out["n_reads"]:
+                yield _cols_from_decode(out)
+            if out["consumed"] == 0:
+                if b1 >= nb:
+                    break  # truncated tail / EOF
+                window_bytes *= 2  # record larger than the window
+                continue
+            u_off += out["consumed"]
+
     def read_segments(self, tid: int, start: int, end: int,
                       min_mapq: int, flag_mask: int,
                       voffset: int | None = None):
@@ -507,6 +543,17 @@ class _PyBamAdapter:
                                  voffset=voffset)
         return filter_clip_segments(cols, start, end, min_mapq,
                                     flag_mask)
+
+    def stream_columns(self, window_bytes: int = 1 << 24,
+                       chunk_records: int = 1 << 18):
+        """Chunked sequential decode to EOF: the stream the native
+        handle's ``stream_columns`` yields."""
+        rdr = BamReader(self._data)
+        while True:
+            cols = rdr.read_columns(max_records=chunk_records)
+            if cols.n_reads == 0:
+                return
+            yield cols
 
 
 def read_header_only(path: str, initial: int = 1 << 20) -> BamHeader:

@@ -24,6 +24,8 @@ The instrumented sites of the port:
     decode   the device rANS decode's per-container Step
              (ops/rans_device.py, under --decode-device)
     fetch    the remote data plane's network round trips (io/remote.py)
+    map      the mapper's per-bucket seed and extend Steps
+             (mapping/pipeline.py)
 
 Example: ``shard:after=3:kill`` SIGKILLs the process at the 3rd shard,
 the mid-flight death a checkpointed run must survive.

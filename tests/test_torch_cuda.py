@@ -1,5 +1,6 @@
 """The CUDA kernels (depth, pair-HMM, rANS-Nx16, indexcov's
-normalisation) against their plain PyTorch versions, and the EM
+normalisation, the mapper's swalign) against their plain PyTorch
+versions, and the EM
 copy-number caller, cn.mops and indexcov against their CPU path, on a
 card.
 
@@ -15,9 +16,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (DEPTH_EDGES, HG38, NORM_EDGES, compare_indexcov_dirs,
-                        depth_edge_case, indexcov_fabricate, norm_edge_case,
-                        norm_main_case)
+from chip_smoke import (DEPTH_EDGES, HG38, NORM_EDGES, SW_CASES,
+                        compare_indexcov_dirs, depth_edge_case,
+                        indexcov_fabricate, norm_edge_case, norm_main_case,
+                        sw_case)
 from goleft_tpu_torch.ops import depth_kernel as dk
 from goleft_tpu_torch.ops.coverage import bucket_size, pack_segments_u16
 
@@ -502,3 +504,70 @@ def test_run_indexcov_on_card_equals_cpu(tmp_path):
         assert nk.LAUNCHES["indexcov_norm"] - before == 3 * k
         run_indexcov(bais, cpu, fai=fai, device="cpu", **kw)
         compare_indexcov_dirs(cpu, card)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SW_CASES))
+def test_swalign_kernel_equals_plain_on_card(name):
+    """chip_smoke.py's SW_CASES (a batch of 4,096 pairs of 150 bp reads,
+    1,100 and 2,000 bp reads, B = 1, an all-N read, an all-mismatch pair,
+    a tie, a window length past the bucket's width): best, bi, bj and
+    every direction byte bitwise against the plain version on the card
+    (the 2,000 bp bucket keeps its wavefront rows in device memory); one
+    counted launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import swalign, swalign_kernel
+
+    dev = torch.device("cuda")
+    sc = torch.tensor([2, -4, -4, -2], dtype=torch.int32, device=dev)
+    t = [torch.from_numpy(a).to(dev) for a in sw_case(name)] + [sc]
+    want = swalign.sw_bucket_plain(*t)
+    before = swalign_kernel.LAUNCHES["swalign"]
+    got = swalign.sw_bucket(*t)
+    torch.cuda.synchronize()
+    assert swalign_kernel.LAUNCHES["swalign"] == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_swalign_launch_plan_comes_from_the_kernel():
+    """The kernel's own plan: lanes round up to a warp, at most 256
+    threads; the wavefront rows in shared memory up to r1 1,706, a device
+    scratch of 6 int32 a lane a pair beyond."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import swalign_kernel
+
+    assert swalign_kernel.launch_plan(1) == (32, 0)
+    assert swalign_kernel.launch_plan(161) == (192, 0)
+    assert swalign_kernel.launch_plan(1121) == (256, 0)
+    assert swalign_kernel.launch_plan(1706) == (256, 0)
+    assert swalign_kernel.launch_plan(1707) == (256, 6 * 1707)
+    assert swalign_kernel.launch_plan(2000) == (256, 12000)
+
+
+@pytest.mark.cuda
+def test_swalign_wrapper_refuses_what_the_kernel_does_not_take():
+    """Non-contiguous, wrongly typed or mixed-device tensors raise before
+    any launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from goleft_tpu_torch.ops import swalign, swalign_kernel
+
+    dev = torch.device("cuda")
+    reads, rl, wins, wl = (torch.from_numpy(a).to(dev)
+                           for a in sw_case("tie"))
+    sc = torch.tensor([2, -4, -4, -2], dtype=torch.int32, device=dev)
+    before = swalign_kernel.LAUNCHES["swalign"]
+    with pytest.raises(TypeError):
+        swalign.sw_bucket(reads.to(torch.int32), rl, wins, wl, sc)
+    with pytest.raises(TypeError):
+        swalign.sw_bucket(reads, rl.to(torch.int64), wins, wl, sc)
+    wide = torch.cat([wins, wins], dim=1)[:, ::2]
+    with pytest.raises(ValueError):
+        swalign.sw_bucket(reads, rl, wide, wl, sc)
+    with pytest.raises(ValueError):
+        swalign.sw_bucket(reads, rl, wins, wl, sc.cpu())
+    assert swalign_kernel.LAUNCHES["swalign"] == before

@@ -45,7 +45,7 @@ def test_sources_import_neither_jax_nor_reference():
         seen.append(os.path.relpath(path, PKG))
     assert len(seen) > 10
     for sub in ("obs", "plan", "resilience", "models", "ops", "commands",
-                "io", "parallel", "utils", "cohort"):
+                "io", "parallel", "utils", "cohort", "mapping"):
         assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
@@ -444,6 +444,105 @@ def test_cpu_multidepth_and_dcnv_runs_load_no_jax(tmp_path):
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def test_cpu_map_run_loads_no_jax(tmp_path):
+    """A fabricated reference and FASTQ through the port's map on the
+    CPU, tuples and --depth-out, in a fresh interpreter; then neither
+    jax nor goleft_tpu is loaded."""
+    script = textwrap.dedent(f"""
+        import io, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        from goleft_tpu_torch.commands.map_cmd import run_map
+        d = {str(tmp_path)!r}
+        rng = np.random.default_rng(2)
+        ref = bytes(rng.choice(list(b"ACGT"), 4000).tolist())
+        with open(d + "/r.fa", "wb") as fh:
+            fh.write(b">chr1\\n" + ref + b"\\n")
+        with open(d + "/r.fq", "wb") as fh:
+            for i in range(30):
+                s = int(rng.integers(0, 3800))
+                fh.write(b"@r%d\\n%s\\n+\\n%s\\n"
+                         % (i, ref[s:s + 120], b"I" * 120))
+        rc = run_map(d + "/r.fa", d + "/r.fq", out=d + "/t.tsv",
+                     depth_out=d + "/d.bed", device="cpu")
+        rows = open(d + "/t.tsv").read().splitlines()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("RC", rc, "ROWS", len(rows), len(open(d + "/d.bed").read()
+                                               .splitlines()))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "RC 0 ROWS 30 16" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_goleft_tools_run_without_a_card_and_load_no_jax(tmp_path):
+    """samplename, covstats, indexsplit, anonymize, depthwed and cnveval
+    through the port's CLI in a fresh interpreter where no card is
+    visible: each exits 0 (none has a device stage, so none asks for
+    one), and neither jax nor goleft_tpu is loaded."""
+    script = textwrap.dedent(f"""
+        import contextlib, io, sys
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import torch
+        assert not torch.cuda.is_available()
+        from goleft_tpu_torch import cli
+        from goleft_tpu_torch.io.bai import build_bai, write_bai
+        from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+        d = {str(tmp_path)!r}
+        hdr = ("@HD\\tVN:1.6\\tSO:coordinate\\n@SQ\\tSN:chr1\\tLN:200000\\n"
+               "@RG\\tID:r\\tSM:s0\\n")
+        with open(d + "/t.bam", "wb") as fh:
+            with BamWriter(fh, hdr, ["chr1"], [200000]) as w:
+                for i, s in enumerate(range(0, 190000, 40)):
+                    w.write_record(0, s, parse_cigar("100M"),
+                                   flag=0x63 if i % 2 else 0x93,
+                                   name=f"r{{i}}", mate_tid=0,
+                                   mate_pos=s + 250, tlen=350)
+        write_bai(build_bai(d + "/t.bam"), d + "/t.bam.bai")
+        for n in "ab":
+            with open(f"{{d}}/{{n}}.depth.bed", "w") as fh:
+                for k in range(8):
+                    fh.write(f"chr1\\t{{k * 250}}\\t{{k * 250 + 250}}\\t"
+                             f"{{k}}.5\\n")
+        with open(d + "/truth.bed", "w") as fh:
+            fh.write("1\\t1000\\t15000\\t1\\ta\\n")
+        with open(d + "/test.bed", "w") as fh:
+            fh.write("1\\t1000\\t15000\\t1\\ta\\n")
+        runs = [["samplename", d + "/t.bam"],
+                ["covstats", "-n", "500", d + "/t.bam"],
+                ["indexsplit", "-n", "4", d + "/t.bam"],
+                ["anonymize", "coh", d + "/t.bam", "-d", d],
+                ["depthwed", "-s", "500", d + "/a.depth.bed",
+                 d + "/b.depth.bed"],
+                ["cnveval", d + "/truth.bed", d + "/test.bed"]]
+        rcs = []
+        for argv in runs:
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                rcs.append(cli.main(argv))
+            assert buf.getvalue(), argv
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("RCS", rcs)
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=300, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "RCS [0, 0, 0, 0, 0, 0]" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+    assert (tmp_path / "sample_coh_0001.bam.bai").exists()
+
+
 def test_indexcov_default_run_needs_a_card(monkeypatch, tmp_path):
     """``run_indexcov`` without ``device`` asks for the card: without one
     it raises before it writes anything."""
@@ -543,7 +642,7 @@ def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
     rep = load_manifest(str(report))
     assert rep["command"] == "depth" and rep["exit_code"] == 1
     assert rep["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0,
-                                      "indexcov_norm": 0}
+                                      "indexcov_norm": 0, "swalign": 0}
     assert rep["backend"]["platform"] == "cpu"
     assert rep["spans"]["run.depth"]["calls"] == 1
 
@@ -582,7 +681,7 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
     assert doc["backend"]["platform"] == "cpu"
     assert doc["backend"]["device_kind"] == "cpu"
     assert doc["kernel_launches"] == {"depth": 0, "pairhmm": 0, "rans": 0,
-                                      "indexcov_norm": 0}
+                                      "indexcov_norm": 0, "swalign": 0}
     assert doc["command"] == "depth" and doc["exit_code"] == 1
     assert doc["argv"][0] == "goleft-tpu-torch depth"
     assert doc["spans"]["run.depth"]["calls"] == 1
@@ -599,8 +698,10 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
 
 
 def test_cli_lists_depth():
-    assert sorted(cli.PROGS) == ["cnv", "cohortdepth", "cohortscan", "dcnv",
-                                 "depth", "emdepth", "indexcov",
-                                 "multidepth", "pairhmm"]
+    assert sorted(cli.PROGS) == ["anonymize", "cnv", "cnveval",
+                                 "cohortdepth", "cohortscan", "covstats",
+                                 "dcnv", "depth", "depthwed", "emdepth",
+                                 "indexcov", "indexsplit", "map",
+                                 "multidepth", "pairhmm", "samplename"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
