@@ -163,15 +163,18 @@ Run from the root of a checkout, on a machine with one CUDA card:
    boundaries), each byte-identical to the port's CPU path; prints the
    seconds and sample-bp a second;
 17. holds the swalign kernel (csrc/swalign_kernel.cu, the mapper's
-   banded Smith-Waterman wavefront) against its plain version on the
-   card, bitwise in best score, best cell and every direction byte, on
-   a bucket of 4,096 pairs of 150 bp reads at the reference's band 32
-   (r1 161, w_pad 256), 8 pairs of 1,100 bp, 2 pairs of 2,000 bp (the
-   wavefront rows in device memory), B = 1, an all-N read, an
-   all-mismatch pair, a tie and a window length past the bucket's width,
-   and 64 pairs against ``sw_oracle``; prints the kernel's time, the
-   plain version's and the direction bits' copy to the host, and the
-   bound;
+   banded Smith-Waterman: a warp a pair, the direction plane kept on the
+   card and walked there) against its plain version on the card, one
+   counted launch a bucket: bitwise in best score, best cell and every
+   byte of its unpacked direction plane, and its run-length CIGARs equal
+   to the host traceback on every pair, on a bucket of 4,096 pairs of
+   150 bp reads at the reference's band 32 (r1 161, w_pad 256), 8 pairs
+   of 1,100 bp and 2 pairs of 2,000 bp (bands of 256 rows), B = 1, an
+   all-N read, an all-mismatch pair, a tie and a window length past the
+   bucket's width, and 64 pairs against ``sw_oracle``; prints the
+   kernel's time, the plain version's, the copy of what ``align_bucket``
+   brings to the host, the plane's bytes, the bound recounted on the
+   cells these inputs need, and ptxas's registers and spills;
 18. runs ``python -m goleft_tpu_torch map --depth-out`` on 40,960
    fabricated reads of 100-150 bp (both strands, substitutions, indels,
    N's) against a 6 + 4 Mb reference at the reference's defaults: ≥ 95%
@@ -182,8 +185,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
    byte-identical to the CPU path's on the same tuples, a transient
    ``map`` fault retried to the same bytes, a corrupt FASTQ exit 3;
    seeding on the card against the host oracle on 4,096 reads; prints
-   the command's time split (import, index build, seed, extend kernel,
-   direction copy, traceback, depth) and launches; then runs goleft's
+   the command's time split (import, index build, seed, extend kernel
+   and walk, the alignments' copy, CIGAR formatting, depth) and
+   launches; then runs goleft's
    six host tools (anonymize, samplename, covstats, indexsplit,
    depthwed, cnveval) once each;
 19. prints the kernels line, the card's ``nvidia-smi`` name and power
@@ -3639,12 +3643,41 @@ SW_CASES = {
 }
 
 
+def _swalign_key(name: str):
+    m = re.search(r"sw_warp_kernelILi(\d)E", name)
+    return m and f"R{m[1]}"
+
+
+def sw_cells(rlens, wlens, r1: int, wcap: int) -> int:
+    """Cells of the reference's set {1 <= i <= min(rlen, r1 - 1),
+    1 <= j <= wlen, i + j <= r1 + wcap - 1}, summed over the pairs."""
+    i = np.arange(1, r1)[None, :]
+    rows = np.minimum(rlens, r1 - 1)[:, None]
+    per = np.clip(np.minimum(wlens[:, None], r1 + wcap - 1 - i), 0, None)
+    return int((per * (i <= rows)).sum())
+
+
+def sw_plane_words(rlens, wlens, r1: int, wcap: int, rpl: int) -> int:
+    """32-bit words of the direction plane that the kernel writes: one a
+    (band, step, lane) for each of lane L's columns 1 ..
+    min(wlen, r1 + wcap - 1 - i0), i0 its band's first row of the lane,
+    on the lanes that hold a row of the read, summed over the pairs."""
+    rows = np.minimum(rlens, r1 - 1)[:, None]
+    i0 = np.arange(0, max(r1 - 1, 1), rpl)[None, :] + 1
+    per = np.clip(np.minimum(wlens[:, None], r1 + wcap - 1 - i0), 0, None)
+    return int((per * (i0 <= rows)).sum())
+
+
 def sw_kernel_phase(dev) -> dict:
-    """The swalign kernel against its plain version on the card, bitwise
-    in best, bi, bj and every direction byte, on every ``SW_CASES``
-    bucket, and 64 pairs of the main bucket against ``sw_oracle``; times
-    the kernel, the plain version and the direction bits' copy to pinned
-    host memory for the main bucket."""
+    """The swalign kernel against its plain version on the card, on every
+    ``SW_CASES`` bucket, one counted launch a bucket: best, bi, bj and
+    every byte of its unpacked direction plane bitwise, and its run
+    buffer, formatted, equal to the host ``traceback`` of the plain
+    version's plane on every pair; 64 pairs of the main bucket against
+    ``sw_oracle``. Times, at the main bucket, the kernel, the plain
+    version (the plain wavefront on the card and the host walk), the
+    copy of what ``align_bucket`` brings to the host, and writes the
+    bound recounted on the cells these inputs need."""
     import torch
 
     from goleft_tpu_torch.ops import swalign
@@ -3653,77 +3686,104 @@ def sw_kernel_phase(dev) -> dict:
     sc = torch.tensor(swalign.DEFAULT_SCORES.astuple(), dtype=torch.int32,
                       device=dev)
     out = {"cases": {}}
-    main_t = None
     err = 0
     for name in SW_CASES:
         host = sw_case(name)
         t = [torch.from_numpy(a).to(dev) for a in host] + [sc]
-        got = swalign.sw_bucket(*t)
+        b, r1 = host[0].shape
+        wcap = host[2].shape[1]
+        before = sk.LAUNCHES["swalign"]
+        meta, runs, plane, plan = sk.launch(*t)
         torch.cuda.synchronize()
+        assert sk.LAUNCHES["swalign"] == before + 1, name
+        dirs = swalign.unpack_dirs(plane, plan.rows_per_lane, t[1], t[3],
+                                   r1, wcap)
         want = swalign.sw_bucket_plain(*t)
         torch.cuda.synchronize()
-        for what, g, w in zip(("best", "bi", "bj", "dirs"), got, want):
+        for what, g, w in zip(("best", "bi", "bj", "dirs"),
+                              (meta[0], meta[1], meta[2], dirs), want):
             err = max(err, int((g.long() - w.long()).abs().max()))
             if not torch.equal(g, w):
                 raise AssertionError(
                     f"swalign {name}: {what} differs from the plain "
                     f"version at {int((g != w).sum())} entries")
-        b, r1 = host[0].shape
-        out["cases"][name] = {"pairs": b, "r1": r1, "w_pad": host[2].shape[1],
-                              "shared_rows": sk.launch_plan(r1)[1] == 0,
-                              "best_max": int(got[0].max())}
+        meta_h = meta.cpu().numpy()
+        got = swalign.alignments(
+            meta_h, runs[:max(1, int(meta_h[5].max()))].cpu().numpy())
+        wb, wi, wj, wd = (x.cpu().numpy() for x in want)
+        for n in range(b):
+            exp = (int(wb[n]),) + swalign.traceback(wd[n], wi[n], wj[n])
+            if tuple(got[n]) != exp:
+                raise AssertionError(f"swalign {name}: pair {n}'s walk on "
+                                     f"the card {tuple(got[n])} is not the "
+                                     f"host traceback's {exp}")
+        out["cases"][name] = {"pairs": b, "r1": r1, "w_pad": wcap,
+                              "plan": plan._asdict(),
+                              "best_max": int(meta_h[0].max())}
         if name == "main":
-            main_t, main_got = t, [x.cpu().numpy() for x in got]
+            main = (t, host, meta_h, got, dirs.cpu().numpy())
         if name in ("all_n_read", "all_mismatch"):
-            assert int(got[0].max()) == 0, name
+            assert int(meta_h[0].max()) == 0, name
         if name == "tie":
-            assert [int(x[0]) for x in got[:3]] == [8, 4, 4], name
+            assert [int(x[0]) for x in meta_h[:3]] == [8, 4, 4], name
         if name == "wlen_past_pad":
-            assert int(got[2][0]) > host[2].shape[1], name
-    reads_p, rlens, wins_p, wlens = (x.cpu().numpy() for x in main_t[:4])
-    best, bi, bj, dirs = main_got
+            assert int(meta_h[2][0]) > wcap, name
+    main_t, (reads_p, rlens, wins_p, wlens), meta_h, got, dirs = main
     for n in range(SW_ORACLE_PAIRS):
         r, w = int(rlens[n]), int(wlens[n])
         ob, oi, oj, od = swalign.sw_oracle(reads_p[n, 1:r + 1],
                                            wins_p[n, :w])
-        assert (int(best[n]), int(bi[n]), int(bj[n])) == (ob, oi, oj), n
+        assert tuple(int(x) for x in meta_h[:3, n]) == (ob, oi, oj), n
         assert np.array_equal(dirs[n, :r + w + 1, :r + 1], od), n
         assert not dirs[n, r + w + 1:].any() and not dirs[n, :, r + 1:].any()
+        assert tuple(got[n]) == (ob,) + swalign.traceback(od, oi, oj), n
     b, r1 = reads_p.shape
     wcap = wins_p.shape[1]
-    steps = r1 + wcap
-    ms = cuda_median_ms(lambda: swalign.sw_bucket(*main_t))
-    plain_ms = cuda_median_ms(lambda: swalign.sw_bucket_plain(*main_t),
+    ms = cuda_median_ms(lambda: sk.launch(*main_t))
+    plain_ms = cuda_median_ms(lambda: swalign.sw_align_plain(*main_t),
                               reps=3)
-    dirs_dev = swalign.sw_bucket(*main_t)[3]
-    pinned = torch.empty(dirs_dev.shape, dtype=torch.uint8,
-                         pin_memory=True)
-    d2h_ms = cuda_median_ms(lambda: pinned.copy_(dirs_dev), reps=5)
-    lane_steps = b * (steps - 1) * r1
-    ops = lane_steps * sk.OPS_PER_LANE_STEP
-    moved = (b * r1 + b * wcap + 8 * b + 16) + (b * steps * r1 + 12 * b)
+    wave_ms = cuda_median_ms(lambda: swalign.sw_bucket_plain(*main_t),
+                             reps=3)
+    meta, runs, plane, _ = sk.launch(*main_t)
+    filled = int(meta_h[5].max())
+    copy_ms = cuda_median_ms(lambda: (meta.cpu(), runs[:filled].cpu()),
+                             reps=5)
+    cells = sw_cells(rlens, wlens, r1, wcap)
+    words = sw_plane_words(rlens, wlens, r1, wcap,
+                           out["cases"]["main"]["plan"]["rows_per_lane"])
+    ops = cells * sk.OPS_PER_CELL
+    n_runs = int(meta_h[5].sum())
+    moved = (b * r1 + b * wcap + 8 * b + 16) + (24 * b + 4 * n_runs)
     t_ops = ops / INT_OPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
-    out.update(ms=ms, plain_ms=plain_ms, dirs_d2h_ms=d2h_ms,
-               dirs_bytes=b * steps * r1, lane_steps=lane_steps,
+    copied = 24 * b + 4 * filled * b
+    out.update(ms=ms, plain_ms=plain_ms, plain_wavefront_ms=wave_ms,
+               copy_ms=copy_ms, copied_bytes=copied, cells=cells,
+               plane_words=words, plane_alloc_bytes=plane.numel() * 4,
                bound_ms=max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                ops_ms=t_ops, bytes_ms=t_bytes, max_abs_err=err,
-               ptxas=kernel_resources(sk.BUILD_LOG, key=lambda n: "swalign"))
+               ptxas=kernel_resources(sk.BUILD_LOG, key=_swalign_key))
     log(f"swalign kernel: bitwise equal to the plain version on the card "
-        f"on {len(SW_CASES)} buckets (" + ", ".join(
-            f"{k} {v['pairs']} x r1 {v['r1']} x w_pad {v['w_pad']}"
-            + ("" if v["shared_rows"] else " (rows in device memory)")
+        f"on {len(SW_CASES)} buckets, one launch each, and its walk equal "
+        f"to the host traceback on every pair (" + ", ".join(
+            f"{k} {v['pairs']} x r1 {v['r1']} x w_pad {v['w_pad']} (R "
+            f"{v['plan']['rows_per_lane']}, {v['plan']['bands']} band"
+            f"{'s' if v['plan']['bands'] > 1 else ''})"
             for k, v in out["cases"].items()) + "), "
         f"{SW_ORACLE_PAIRS} pairs of the main bucket equal to sw_oracle; "
-        f"main bucket ({b} pairs, {steps} steps): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.2f} ms, direction bits to pinned host memory "
-        f"{d2h_ms:.4f} ms ({b * steps * r1} bytes); bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {lane_steps:.3g} "
-        f"lane-steps x {sk.OPS_PER_LANE_STEP} int ops at "
-        f"{INT_OPS_PER_S:.3g}/s = {t_ops:.4f} ms; {moved} bytes at "
-        f"{HBM_BYTES_PER_S:.3g}/s = {t_bytes:.4f} ms); ptxas "
-        + json.dumps(out["ptxas"]))
+        f"main bucket ({b} pairs, r1 {r1}, w_pad {wcap}, {cells} cells): "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.2f} ms (its wavefront "
+        f"{wave_ms:.2f}), align_bucket's copy {copy_ms:.4f} ms ({copied} "
+        f"bytes); the plane, on the card: direction bits of {cells} "
+        f"cells at 4 bits a cell, counted from the inputs, in {words} "
+        f"32-bit words written ({4 * words} bytes), {plane.numel() * 4} "
+        f"bytes allocated; bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']}: {cells} cells x "
+        f"{sk.OPS_PER_CELL} int32 ops at {INT_OPS_PER_S:.3g}/s = "
+        f"{t_ops:.4f} ms; {moved} bytes at {HBM_BYTES_PER_S:.3g}/s = "
+        f"{t_bytes:.4f} ms), the kernel {ms / out['bound_ms']:.2f}x it; "
+        f"ptxas " + json.dumps(out["ptxas"]))
     return out
 
 
@@ -4148,8 +4208,9 @@ def main(argv=None) -> int:
         swk.update(status="pass", launches=mres["launches"]["swalign"],
                    max_abs_err=sres["max_abs_err"], ms=sres["ms"],
                    plain_ms=sres["plain_ms"], bound_ms=sres["bound_ms"],
-                   bound_by=sres["bound_by"],
-                   dirs_d2h_ms=sres["dirs_d2h_ms"], ptxas=sres["ptxas"])
+                   bound_by=sres["bound_by"], copy_ms=sres["copy_ms"],
+                   plane_alloc_bytes=sres["plane_alloc_bytes"],
+                   ptxas=sres["ptxas"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)

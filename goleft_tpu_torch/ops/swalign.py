@@ -10,19 +10,22 @@ vectors with shifts and elementwise max.
     E[i,j] = max(H[i,j-1] + open + ext, E[i,j-1] + ext)   (gap in read)
     F[i,j] = max(H[i-1,j] + open + ext, F[i-1,j] + ext)   (gap in ref)
 
-A bucket's wavefront is one launch of the hand-written kernel
-(csrc/swalign_kernel.cu, ops/swalign_kernel.py) on CUDA tensors and
-:func:`sw_bucket_plain`, the same loop as PyTorch ops over pairs and
-lanes, on CPU tensors; :func:`sw_bucket` chooses by the tensors' device
-and never falls back. Both match the NumPy oracle (:func:`sw_oracle`)
-and the reference's ``_sw_bucket_impl`` bit for bit: per pair the best
-score and cell and the direction-bit plane (2 bits of H-source, one
-E-extend bit, one F-extend bit per cell). Padding lanes are the
-identity, so a pair's result is independent of its bucket shape and
-batch neighbours.
+A bucket is one launch of the hand-written kernel (csrc/swalign_kernel.cu,
+ops/swalign_kernel.py) on CUDA tensors: the wavefront, each pair's best
+cell, a direction plane of 4 bits a cell in the kernel's layout that
+stays on the card, and the traceback walked there into run-length CIGAR
+ops. Its plain version on CPU tensors is :func:`sw_align_plain`: the same
+loop as PyTorch ops over pairs and lanes (:func:`sw_bucket_plain`), then
+:func:`traceback_runs` on the host. :func:`sw_align` and
+:func:`sw_bucket` choose by the tensors' device and never fall back.
+Both match the NumPy oracle (:func:`sw_oracle`) and the reference's
+``_sw_bucket_impl`` bit for bit: per pair the best score and cell and
+the direction-bit plane (2 bits of H-source, one E-extend bit, one
+F-extend bit per cell; :func:`unpack_dirs` turns the kernel's plane into
+the reference's layout for the checks). Padding lanes are the identity,
+so a pair's result is independent of its bucket shape and batch
+neighbours.
 
-The host copies each bucket's direction bits once and walks them back
-from the best cell (:func:`traceback`, O(alignment length) a read).
 Tie-breaking is pinned on both sides: the best cell is the
 lexicographically first (i+j, i) among maximal cells, H prefers
 diagonal > E > F on ties, and E/F prefer extension on ties.
@@ -31,9 +34,11 @@ Reads pad to ``BUCKET`` (32), windows to ``WBUCKET`` (64);
 :func:`align_pairs` is the host entry the mapping pipeline drives (the
 ``map`` fault site wraps each bucket one level up, in
 mapping/pipeline.py). Stages (``TIMER``, summed into the CLI's
-``--metrics-out`` spans): ``extend-kernel`` (the upload and the
-wavefront, waited on), ``extend-d2h`` (the direction bits to the host)
-and ``traceback``.
+``--metrics-out`` spans): ``extend-kernel`` (the upload and one
+:func:`sw_align`, waited on: on the card the wavefront and the walk),
+``extend-d2h`` (each pair's best, spans and run count, and the filled
+rows of the run buffer, to the host) and ``traceback`` (the CIGAR
+strings formatted from the runs).
 """
 
 from __future__ import annotations
@@ -55,6 +60,9 @@ N_CODE = 4
 #: "minus infinity" for int32 gap states: low enough to never win a
 #: max, high enough that adding a gap penalty cannot wrap
 NEG = np.int32(-(1 << 28))
+#: the CIGAR ops of a run's low two bits
+OPS = "MID"
+OP_M, OP_I, OP_D = range(3)
 
 #: stage clock of the extend stage
 TIMER = StageTimer()
@@ -160,18 +168,8 @@ def _check(t: torch.Tensor, dtype, name: str, shape: tuple):
                          f"{shape}, got {tuple(t.shape)}")
 
 
-def sw_bucket(reads_p, rlens, wins, wlens, scores):
-    """One padded bucket through the wavefront.
-
-    reads_p: (B, R1) uint8, the read base at lane i (1-based; lane 0 is
-             the boundary row), rlens (B,) int32
-    wins:    (B, W) uint8 window bases (0-based), wlens (B,) int32
-    scores:  (4,) int32 [match, mismatch, gap_open, gap_ext]
-
-    Returns (best (B,) int32, bi (B,) int32, bj (B,) int32, dirs (B,
-    R1 + W, R1) uint8) on the inputs' device: the kernel's on CUDA
-    tensors, the plain version's on CPU tensors.
-    """
+def _checked_device(reads_p, rlens, wins, wlens, scores) -> torch.device:
+    """The bucket's device, after the checks the kernel needs."""
     b, r1 = reads_p.shape
     wcap = wins.shape[1]
     _check(reads_p, torch.uint8, "reads_p", (b, r1))
@@ -185,11 +183,112 @@ def sw_bucket(reads_p, rlens, wins, wlens, scores):
     dev = reads_p.device
     if any(t.device != dev for t in (rlens, wins, wlens, scores)):
         raise ValueError("swalign: inputs on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"swalign: unsupported device {dev}")
+    return dev
+
+
+def sw_bucket(reads_p, rlens, wins, wlens, scores):
+    """One padded bucket through the wavefront, in the reference's
+    layout.
+
+    reads_p: (B, R1) uint8, the read base at lane i (1-based; lane 0 is
+             the boundary row), rlens (B,) int32
+    wins:    (B, W) uint8 window bases (0-based), wlens (B,) int32
+    scores:  (4,) int32 [match, mismatch, gap_open, gap_ext]
+
+    Returns (best (B,) int32, bi (B,) int32, bj (B,) int32, dirs (B,
+    R1 + W, R1) uint8) on the inputs' device: on CUDA tensors one kernel
+    launch and :func:`unpack_dirs` of its plane, on CPU tensors the
+    plain version's.
+    """
+    dev = _checked_device(reads_p, rlens, wins, wlens, scores)
     if dev.type == "cpu":
         return sw_bucket_plain(reads_p, rlens, wins, wlens, scores)
-    if dev.type != "cuda":
-        raise ValueError(f"swalign: unsupported device {dev}")
-    return swalign_kernel.launch(reads_p, rlens, wins, wlens, scores)
+    meta, _, plane, plan = swalign_kernel.launch(reads_p, rlens, wins,
+                                                 wlens, scores)
+    return (meta[0], meta[1], meta[2],
+            unpack_dirs(plane, plan.rows_per_lane, rlens, wlens,
+                        reads_p.shape[1], wins.shape[1]))
+
+
+def sw_align_plain(reads_p, rlens, wins, wlens, scores):
+    """The plain version of the kernel's outputs: :func:`sw_bucket_plain`
+    and :func:`traceback_runs` of every pair, on the host. Inputs and
+    outputs as :func:`sw_align`."""
+    b, r1 = reads_p.shape
+    wcap = wins.shape[1]
+    best, bi, bj, dirs = (x.cpu().numpy() for x in sw_bucket_plain(
+        reads_p, rlens, wins, wlens, scores))
+    meta = np.zeros((6, b), np.int32)
+    runs = np.zeros((r1 + wcap, b), np.int32)
+    for n in range(b):
+        rs, ws, rr = traceback_runs(dirs[n], bi[n], bj[n])
+        meta[:, n] = (best[n], bi[n], bj[n], rs, ws, len(rr))
+        runs[:len(rr), n] = rr
+    return (torch.from_numpy(meta).to(reads_p.device),
+            torch.from_numpy(runs).to(reads_p.device))
+
+
+def sw_align(reads_p, rlens, wins, wlens, scores):
+    """One padded bucket (inputs as :func:`sw_bucket`) through the
+    wavefront and the traceback → (meta (6, B) int32: best, bi, bj,
+    read_start, win_start, runs; runs (R1 + W, B) int32: a pair's first
+    meta[5] rows are its CIGAR's run-length ops, ``(length << 2) | op``
+    with op an index of ``OPS``, in the CIGAR's order; the rows past them
+    are undefined). One kernel launch on CUDA tensors, whose direction
+    plane stays on the card; :func:`sw_align_plain` on CPU tensors."""
+    dev = _checked_device(reads_p, rlens, wins, wlens, scores)
+    if dev.type == "cpu":
+        return sw_align_plain(reads_p, rlens, wins, wlens, scores)
+    meta, runs, _, _ = swalign_kernel.launch(reads_p, rlens, wins, wlens,
+                                             scores)
+    return meta, runs
+
+
+def _cells(t: torch.Tensor, ncols: int) -> torch.Tensor:
+    """The (B, R1 - 1, ncols) view of cells (i, j) = [i - 1, j - 1] of a
+    contiguous (B, steps, R1) plane in the reference's layout, whose
+    cell (i, j) lies at [i + j, i]; ``steps`` >= R1 + ncols."""
+    b, steps, r1 = t.shape
+    return t.as_strided((b, r1 - 1, ncols), (steps * r1, r1 + 1, r1),
+                        t.storage_offset() + 2 * r1 + 1)
+
+
+def _skewed(nib: torch.Tensor, ncols: int) -> torch.Tensor:
+    """The (B, bands, 32, R, ncols) view of a contiguous (B, bands, S,
+    32, R) nibble plane in the kernel's layout: lane L's row r of a band
+    at column c + 1 was written at step c + L."""
+    b, bands, s, w, r = nib.shape
+    return nib.as_strided((b, bands, w, r, ncols),
+                          (bands * s * w * r, s * w * r, w * r + r, 1,
+                           w * r), nib.storage_offset())
+
+
+def unpack_dirs(plane, rows_per_lane: int, rlens, wlens, r1: int,
+                wcap: int) -> torch.Tensor:
+    """The kernel's direction plane ((B, bands, ncols + 31, 32) int32,
+    ncols at least every column of the cell set: one word a (band, step,
+    lane) holding the lane's ``rows_per_lane`` rows x 4 bits, row r in
+    bits 4r..4r+3, lane L's rows of a band being 32 R x band + L R + 1
+    ..., its column j at step j - 1 + L) → the reference's (B, R1 + W,
+    R1) uint8 layout, 0 wherever the reference computes no cell. Only
+    the checks' view of the plane: the main path never calls it."""
+    b, bands, s, _ = plane.shape
+    ncols = s - 31
+    dev = plane.device
+    shift = 4 * torch.arange(rows_per_lane, dtype=torch.int32, device=dev)
+    nib = ((plane.unsqueeze(-1) >> shift) & 15).to(torch.uint8)
+    rows = _skewed(nib, ncols).reshape(b, -1, ncols)[:, :r1 - 1]
+    i = torch.arange(1, r1, device=dev)[None, :, None]
+    j = torch.arange(1, ncols + 1, device=dev)[None, None, :]
+    valid = ((i <= rlens.to(torch.int64)[:, None, None])
+             & (j <= wlens.to(torch.int64)[:, None, None])
+             & (i + j <= r1 + wcap - 1))
+    out = torch.zeros((b, r1 + max(wcap, ncols), r1), dtype=torch.uint8,
+                      device=dev)
+    _cells(out, ncols).copy_(torch.where(valid, rows, 0))
+    return out[:, :r1 + wcap].contiguous()
 
 
 def sw_oracle(read_codes: np.ndarray, win_codes: np.ndarray,
@@ -247,24 +346,26 @@ def sw_oracle(read_codes: np.ndarray, win_codes: np.ndarray,
     return best, bi, bj, dirs
 
 
-def traceback(dirs: np.ndarray, bi: int, bj: int):
+def traceback_runs(dirs: np.ndarray, bi: int, bj: int):
     """Walk the direction bits back from the best cell.
 
     ``dirs`` is the (steps, R1) per-pair plane (device or oracle);
-    (bi, bj) the 1-based best cell. Returns (read_start, read_end,
-    win_start, win_end, cigar) with half-open 0-based spans and a
-    SAM-style cigar over M/I/D (I consumes read, D consumes window).
+    (bi, bj) the 1-based best cell. Returns (read_start, win_start,
+    runs): the 0-based starts of the half-open spans that end at bi, bj,
+    and the CIGAR as run-length ops, ``(length << 2) | op`` with op an
+    index of ``OPS`` (M, I consuming read, D consuming window), in the
+    CIGAR's order. The plain version of the kernel's walk.
     """
     i, j = int(bi), int(bj)
     if i == 0 and j == 0:
-        return 0, 0, 0, 0, ""
-    ops: list[tuple[str, int]] = []
+        return 0, 0, []
+    ops: list[list[int]] = []  # [op, length], walked from the end
 
-    def push(op: str):
+    def push(op: int):
         if ops and ops[-1][0] == op:
-            ops[-1] = (op, ops[-1][1] + 1)
+            ops[-1][1] += 1
         else:
-            ops.append((op, 1))
+            ops.append([op, 1])
 
     state = "H"
     while True:
@@ -274,7 +375,7 @@ def traceback(dirs: np.ndarray, bi: int, bj: int):
             if src == 0:
                 break
             if src == 1:
-                push("M")
+                push(OP_M)
                 i -= 1
                 j -= 1
             elif src == 2:
@@ -282,17 +383,29 @@ def traceback(dirs: np.ndarray, bi: int, bj: int):
             else:
                 state = "F"
         elif state == "E":
-            push("D")  # gap in read: consumes a window base
+            push(OP_D)  # gap in read: consumes a window base
             ext = (d >> 2) & 1
             j -= 1
             state = "E" if ext else "H"
         else:
-            push("I")  # gap in window: consumes a read base
+            push(OP_I)  # gap in window: consumes a read base
             ext = (d >> 3) & 1
             i -= 1
             state = "F" if ext else "H"
-    cigar = "".join(f"{n}{op}" for op, n in reversed(ops))
-    return i, int(bi), j, int(bj), cigar
+    return i, j, [(n << 2) | op for op, n in reversed(ops)]
+
+
+def format_cigar(runs) -> str:
+    """Run-length ops (:func:`traceback_runs`) → a SAM-style CIGAR."""
+    return "".join([f"{w >> 2}{OPS[w & 3]}" for w in runs])
+
+
+def traceback(dirs: np.ndarray, bi: int, bj: int):
+    """Walk the direction bits back from the best cell → (read_start,
+    read_end, win_start, win_end, cigar) with half-open 0-based spans and
+    a SAM-style cigar over M/I/D (I consumes read, D consumes window)."""
+    rs, ws, runs = traceback_runs(dirs, bi, bj)
+    return rs, int(bi), ws, int(bj), format_cigar(runs)
 
 
 class Alignment(NamedTuple):
@@ -323,35 +436,38 @@ def _pack_bucket(idxs, reads, wins, r_pad, w_pad):
     return reads_p, rlens, wins_p, wlens
 
 
+def alignments(meta: np.ndarray, runs: np.ndarray) -> list[Alignment]:
+    """:func:`sw_align`'s outputs on the host (meta (6, B), and the run
+    buffer's first rows, at least every pair's run count) → per-pair
+    :class:`Alignment` list."""
+    best, bi, bj, rs, ws, nruns = meta.tolist()
+    cols = runs.T.tolist()
+    return [Alignment(best[n], rs[n], bi[n], ws[n], bj[n],
+                      format_cigar(cols[n][:nruns[n]]))
+            for n in range(len(best))]
+
+
 def align_bucket(reads_p, rlens, wins_p, wlens,
                  scores: Scores = DEFAULT_SCORES, device=None):
     """One padded bucket (numpy, :func:`_pack_bucket`'s layout) →
-    per-pair :class:`Alignment` list: one wavefront on ``device`` (the
-    card unless ``"cpu"``), its direction bits copied to the host once,
-    the traceback on the host."""
+    per-pair :class:`Alignment` list: one :func:`sw_align` on ``device``
+    (the card unless ``"cpu"``), then each pair's best, spans and run
+    count and the filled rows of the run buffer to the host, where the
+    CIGAR strings are formatted. The direction plane stays on the
+    device."""
     dev = resolve_device(device)
     sc = np.asarray(scores.astuple(), dtype=np.int32)
     with TIMER.stage("extend-kernel"):
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (reads_p, rlens, wins_p, wlens, sc)]
-        best, bi, bj, dirs = obs.dispatch("swalign", sw_bucket, *args)
+        meta, runs = obs.dispatch("swalign", sw_align, *args)
         if dev.type == "cuda":
             torch.cuda.current_stream(dev).synchronize()
     with TIMER.stage("extend-d2h"):
-        if dev.type == "cuda":
-            host = torch.empty(dirs.shape, dtype=torch.uint8,
-                               pin_memory=True)
-            host.copy_(dirs)
-        else:
-            host = dirs
-        dirs = host.numpy()
-        best, bi, bj = (t.cpu().numpy() for t in (best, bi, bj))
-    out = []
+        meta = meta.cpu().numpy()
+        runs = runs[:int(meta[5].max())].cpu().numpy()
     with TIMER.stage("traceback"):
-        for n in range(len(best)):
-            rs, re_, ws, we, cig = traceback(dirs[n], bi[n], bj[n])
-            out.append(Alignment(int(best[n]), rs, re_, ws, we, cig))
-    return out
+        return alignments(meta, runs)
 
 
 def align_pairs(reads, wins, scores: Scores = DEFAULT_SCORES,

@@ -511,41 +511,70 @@ def test_run_indexcov_on_card_equals_cpu(tmp_path):
 def test_swalign_kernel_equals_plain_on_card(name):
     """chip_smoke.py's SW_CASES (a batch of 4,096 pairs of 150 bp reads,
     1,100 and 2,000 bp reads, B = 1, an all-N read, an all-mismatch pair,
-    a tie, a window length past the bucket's width): best, bi, bj and
-    every direction byte bitwise against the plain version on the card
-    (the 2,000 bp bucket keeps its wavefront rows in device memory); one
-    counted launch a call."""
+    a tie, a window length past the bucket's width), one counted launch a
+    bucket: best, bi, bj and every byte of the unpacked direction plane
+    bitwise against the plain version on the card (the long reads cross
+    band boundaries), the run buffer, formatted, equal to the host
+    traceback of the plain version's plane on every pair, and on the main
+    bucket 64 pairs equal to sw_oracle (best cell, direction bytes and
+    alignment)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from goleft_tpu_torch.ops import swalign, swalign_kernel
 
     dev = torch.device("cuda")
     sc = torch.tensor([2, -4, -4, -2], dtype=torch.int32, device=dev)
-    t = [torch.from_numpy(a).to(dev) for a in sw_case(name)] + [sc]
+    host = sw_case(name)
+    t = [torch.from_numpy(a).to(dev) for a in host] + [sc]
+    r1, wcap = host[0].shape[1], host[2].shape[1]
     want = swalign.sw_bucket_plain(*t)
     before = swalign_kernel.LAUNCHES["swalign"]
-    got = swalign.sw_bucket(*t)
+    meta, runs, plane, plan = swalign_kernel.launch(*t)
     torch.cuda.synchronize()
     assert swalign_kernel.LAUNCHES["swalign"] == before + 1
-    for g, w in zip(got, want):
+    dirs = swalign.unpack_dirs(plane, plan.rows_per_lane, t[1], t[3], r1,
+                               wcap)
+    for g, w in zip((meta[0], meta[1], meta[2], dirs), want):
         assert torch.equal(g, w)
+    meta = meta.cpu().numpy()
+    got = swalign.alignments(
+        meta, runs[:max(1, int(meta[5].max()))].cpu().numpy())
+    wb, wi, wj, wd = (x.cpu().numpy() for x in want)
+    for n in range(len(got)):
+        assert tuple(got[n]) == (int(wb[n]),) + swalign.traceback(
+            wd[n], wi[n], wj[n]), n
+    if name == "main":
+        reads_p, rlens, wins_p, wlens = host
+        dirs = dirs.cpu().numpy()
+        for n in range(64):
+            r, w = int(rlens[n]), int(wlens[n])
+            ob, oi, oj, od = swalign.sw_oracle(reads_p[n, 1:r + 1],
+                                               wins_p[n, :w])
+            assert tuple(int(x) for x in meta[:3, n]) == (ob, oi, oj)
+            assert np.array_equal(dirs[n, :r + w + 1, :r + 1], od)
+            assert tuple(got[n]) == (ob,) + swalign.traceback(od, oi, oj)
 
 
 @pytest.mark.cuda
 def test_swalign_launch_plan_comes_from_the_kernel():
-    """The kernel's own plan: lanes round up to a warp, at most 256
-    threads; the wavefront rows in shared memory up to r1 1,706, a device
-    scratch of 6 int32 a lane a pair beyond."""
+    """The kernel's own plan: R = ceil(rows / 32) read rows a lane, at
+    most 8, in bands of 32 R rows; 8 pairs (warps) a block; a device
+    scratch of the band boundary rows (4 x (ncols + 1) int32 a pair,
+    ncols = r1 + w_pad - 2) only past one band; ncols + 31 steps a band
+    in the plane."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     from goleft_tpu_torch.ops import swalign_kernel
 
-    assert swalign_kernel.launch_plan(1) == (32, 0)
-    assert swalign_kernel.launch_plan(161) == (192, 0)
-    assert swalign_kernel.launch_plan(1121) == (256, 0)
-    assert swalign_kernel.launch_plan(1706) == (256, 0)
-    assert swalign_kernel.launch_plan(1707) == (256, 6 * 1707)
-    assert swalign_kernel.launch_plan(2000) == (256, 12000)
+    plan = swalign_kernel.launch_plan
+    assert plan(1, 1) == (1, 1, 8, 0, 32)
+    assert plan(33, 64) == (1, 1, 8, 0, 126)
+    assert plan(129, 192) == (4, 1, 8, 0, 350)
+    assert plan(161, 256) == (5, 1, 8, 0, 446)
+    assert plan(257, 320) == (8, 1, 8, 0, 606)
+    assert plan(258, 320) == (8, 2, 8, 4 * 577, 607)
+    assert plan(1121, 1216) == (8, 5, 8, 4 * 2336, 2366)
+    assert plan(2017, 2112) == (8, 8, 8, 4 * 4128, 4158)
 
 
 @pytest.mark.cuda
@@ -570,4 +599,8 @@ def test_swalign_wrapper_refuses_what_the_kernel_does_not_take():
         swalign.sw_bucket(reads, rl, wide, wl, sc)
     with pytest.raises(ValueError):
         swalign.sw_bucket(reads, rl, wins, wl, sc.cpu())
+    with pytest.raises(TypeError):
+        swalign.sw_align(reads, rl, wins.to(torch.int32), wl, sc)
+    with pytest.raises(ValueError):
+        swalign.sw_align(reads, rl.cpu(), wins, wl, sc)
     assert swalign_kernel.LAUNCHES["swalign"] == before

@@ -32,7 +32,7 @@ def _sources():
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
                  "cohort_bench.py", "flags_bench.py", "em_bench.py",
-                 "norm_bench.py"):
+                 "norm_bench.py", "swalign_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 

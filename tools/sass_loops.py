@@ -4,8 +4,8 @@
 For every function whose (mangled) name matches NAME_REGEX, prints one
 JSON line: its instruction count, the instruction counts of its loops
 (each backward branch with its target; the smallest is the innermost),
-and the op mix of the innermost loop, so a kernel's per-iteration cost
-can be read without ``ncu``.
+the op mix of the innermost loop and of every loop, so a kernel's
+per-iteration cost can be read without ``ncu``.
 
     cuobjdump -sass build/torch/libpairhmm_kernel-*.so > listing.txt
     python3 tools/sass_loops.py listing.txt 'pairhmm_forward_kernelIfLb1ELi6E'
@@ -60,7 +60,10 @@ def main(argv=None) -> int:
             "loops": [len(b) for b in body],
             "innermost_ops": dict(Counter(
                 opcode(t) for _, t in body[0]).most_common())
-            if body else {}}), flush=True)
+            if body else {},
+            "loop_ops": [dict(Counter(opcode(t) for _, t in b)
+                              .most_common()) for b in body]}),
+              flush=True)
     return 0
 
 
