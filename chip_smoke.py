@@ -25,7 +25,15 @@ Run from the root of a checkout, on a machine with one CUDA card:
    kernel's time per shard by CUDA events around one call and as device
    time (a CUDA graph of 20 calls), the plain version's, the bound, and
    the bytes a dense=False call allocates (it fails on the u16 wire if
-   they could hold a per-base int32 buffer);
+   they could hold a per-base int32 buffer); then the kernel's batch
+   axis (``fused_depth_batch``, one launch for B samples over a region,
+   serve's coalesced /v1/depth pass) at the same shard: B = 1, 3, 8 and
+   16 samples of uneven segment counts (one empty, one with a
+   65,535-base segment), on the u16 wire and on the int32 wire with a
+   70,000-base segment, dense outputs bitwise against its plain version
+   and against B single launches; the bytes a dense=False batch of 16
+   allocates beyond its outputs (under one per-base int32 buffer); the
+   time of one batch of 8 against 8 single launches, and its bound;
 4. fabricates a coordinate-sorted 25 Mb BAM + BAI (5,000,000 reads of
    150 bp, MAPQ 0 / DUP / SECONDARY reads, D / N / S / I CIGARs, a pileup
    above the cap), runs ``python -m goleft_tpu_torch depth`` on it in a
@@ -47,7 +55,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
    numpy f64 log-space oracle and the long bucket against a row-at-a-time
    f64 oracle checked against it (1e-4 log10 in f32, 1e-9 in f64); prints the kernel's and the
    plain version's median ms, GCUPS and the compute bound;
-6. fabricates a windows document of 1,000 windows (4 haplotypes of
+6. fabricates a windows document of 500 windows (4 haplotypes of
    350-452 bp, 80 reads of 150 bp each), runs ``python -m
    goleft_tpu_torch pairhmm --candidates`` on ~80% of it in a fresh
    process, checks the table, the launch count (one per length bucket)
@@ -68,10 +76,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
    launching ORDER1 groups of seven table sizes at once, each launch
    against the plain version; then every launch of one real 10,000-record
    container of each codec (ORDER0, ORDER1, STRIPE 4) against the plain
-   version run on the host CPU on copies of the same inputs; the device
-   decode (kernel, expansions, interleave) against the data and the host
-   decoder; a missing ORDER1 context must raise; prints the kernel's and
-   the plain version's time per container of each codec, its cycles a
+   version run on the host CPU on copies of the same inputs (in worker
+   processes that run on beside phases 9-10; held once phase 10 ends);
+   the device decode (kernel, expansions, interleave) against the data
+   and the host decoder; a missing ORDER1 context must raise; prints the
+   kernel's and the plain version's time per container of each codec,
+   its cycles a
    round (ms x the SM clock / the longest stream's rounds; that stream
    alone too) and both bounds;
 9. runs ``python -m goleft_tpu_torch cohortdepth --decode-device`` on the
@@ -128,7 +138,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
    (CUDA events, median of 20) and its cycles a bin, the plain
    version's, the bytes bound and the dependence chain's
    (NORM_CYCLES_PER_BIN);
-14. fabricates 500 whole-genome .bai files (hg38's 24 chromosomes at
+14. fabricates 150 whole-genome .bai files (hg38's 24 chromosomes at
    their GRCh38 lengths, 188,457 bins a sample, sex planted, three latent
    factors a sample planted: IC_FACTORS) with an
    .fai, and runs ``python -m goleft_tpu_torch indexcov`` in fresh
@@ -136,21 +146,21 @@ Run from the root of a checkout, on a machine with one CUDA card:
    the reports, against a numpy oracle from the raw indexes (bed.gz,
    CN of chrX and chrY, bin counters, sex) and the port's CPU path
    (byte-identical but the PCA columns and charts, equal up to sign);
-   run B, all 500 with ``-n --no-html`` (22 indexcov_norm launches), its
+   run B, all 150 with ``-n --no-html`` (22 indexcov_norm launches), its
    chr21 rows of bed.gz and ROC against the CPU path's ``-c chr21 -n``;
    a 30-sample ``-n`` run killed by ``shard:after=5:kill``, resumed
    (byte-identical to an uninterrupted run, fewer launches) and resumed
    again (0 launches); prints each run's seconds, import seconds, seven
    stage totals and samples/s;
-15. runs ``python -m goleft_tpu_torch cohortscan`` on phase 14's 500
-   .bai files in fresh processes, one after another, in chunks of 128
+15. runs ``python -m goleft_tpu_torch cohortscan`` on phase 14's 150
+   .bai files in fresh processes, one after another, in chunks of 38
    samples: run S with ``-n`` (22 x 4 indexcov_norm launches), its
    bed.gz and ROC byte-identical to phase 14's run B and its .ped too
    but the PC columns, equal up to sign; run P without ``-n``, its PCs
    against a float64 oracle from the raw indexes on the card; the first
-   450 samples killed by ``shard:after=5:kill`` (the QC blocks of chr1's
-   four chunks committed) and resumed, then all 500 under ``--resume``
-   with ``--pca sharded``: exactly 50 x 24 QC blocks computed, the bytes
+   135 samples killed by ``shard:after=5:kill`` (the QC blocks of chr1's
+   four chunks committed) and resumed, then all 150 under ``--resume``
+   with ``--pca sharded``: exactly 15 x 24 QC blocks computed, the bytes
    of run P but the PCs, and its PCs against the oracle and run P's
    (each component that 32 power iterations resolve, within its
    tolerance); prints each run's seconds, import seconds, stage totals
@@ -190,7 +200,21 @@ Run from the root of a checkout, on a machine with one CUDA card:
    launches; then runs goleft's
    six host tools (anonymize, samplename, covstats, indexsplit,
    depthwed, cnveval) once each;
-19. prints the kernels line, the card's ``nvidia-smi`` name and power
+19. starts ``python -m goleft_tpu_torch serve --port 0 --cache DIR``
+   (--max-batch 16, continuous batching) and sends it /v1/depth on
+   phase 4's BAM (the oracle's BEDs), a burst of 8 concurrent /v1/depth
+   requests on phase 12's BAMs (at most 2 batched launches a region,
+   each response the BAM served alone, one the one-shot CLI's),
+   /v1/pairhmm (phase 6's table), /v1/cohortdepth --decode-device
+   (phase 9's matrix), /v1/cohortscan -n on 30 of phase 14's .bai
+   (phase 14's 30-sample -n run), /v1/map with window on phase 18's
+   first batch (the CLI's tuples), the depth request again (cached, no
+   launch); checks /healthz (platform gpu), /debug/compiles (the five
+   builds), /debug/memory (device bytes), Prometheus /metrics, SIGTERM
+   → exit 0, and the launches of its manifest; prints per-endpoint
+   p50/p99, the burst's requests/s and batch sizes, launches, warmup
+   and import seconds;
+20. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -200,6 +224,8 @@ checkout, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import base64
+import gzip
 import json
 import multiprocessing as mp
 import os
@@ -208,7 +234,6 @@ import shutil
 import subprocess
 import sys
 import time
-from concurrent.futures import ProcessPoolExecutor
 
 import numpy as np
 
@@ -590,6 +615,173 @@ def kernel_phase(dev):
     return out
 
 
+DB_SIZES = (1, 3, 8, 16)  # the batch sizes of the batched depth launch
+DB_TIMED = 8  # the batch timed against as many single launches
+DB_EMPTY = 2  # the sample without segments
+DB_HALO = 0  # the sample that carries one 65,535-base segment
+
+
+def depth_batch_samples(rng, n_samples: int, shard: int = SHARD,
+                        most: int = 2_000_000):
+    """``n_samples`` samples of one shard at w0 = 30,000,000, as
+    run_segments_batch gets them (kept, sorted endpoints): uneven counts
+    from a quarter of ``most`` to all of it, sample DB_EMPTY without
+    segments, sample DB_HALO with one 65,535-base segment more → (w0,
+    [(s, e)], the 70,000-base segment that forces the int32 wire)."""
+    w0 = 30_000_000
+    out = []
+    for k in range(n_samples):
+        if k == DB_EMPTY:
+            out.append((np.zeros(0, np.int32), np.zeros(0, np.int32)))
+            continue
+        n = int(most * (0.25 + 0.75 * ((k * 7) % 16) / 15))
+        s = np.sort(rng.integers(w0 - 500, w0 + shard + 500, n))
+        e = s + rng.integers(1, 2 * READ_LEN, n)
+        if k == DB_HALO:
+            at = w0 + shard // 3
+            i = np.searchsorted(s, at)
+            s, e = np.insert(s, i, at), np.insert(e, i, at + 0xFFFF)
+        out.append((s.astype(np.int32), e.astype(np.int32)))
+    long_seg = (np.int32(w0 + shard // 2), np.int32(w0 + shard // 2 + 70_000))
+    return w0, out, long_seg
+
+
+def _batch_inputs(dev, samples, wire16: bool):
+    """The batch's back-to-back entries on the card, as
+    DepthEngine.run_segments_batch lays them out → (a, b, offsets, keep,
+    bases)."""
+    import torch
+
+    from goleft_tpu_torch.ops.coverage import pack_segments_u16
+
+    if wire16:
+        packs = [pack_segments_u16(s, e, slice(None)) for s, e in samples]
+        assert all(p is not None for p in packs)
+        cols = [(p[0], p[1]) for p in packs]
+        bases = [int(p[2]) for p in packs]
+    else:
+        cols, bases = samples, None
+    counts = [len(x) for x, _ in cols]
+    offsets = [0] + list(np.cumsum([(n + 7) // 8 * 8 for n in counts]))
+    a = np.zeros(offsets[-1], np.uint16 if wire16 else np.int32)
+    b = np.zeros_like(a)
+    keep = np.zeros(len(a), bool)
+    for (x, y), lo, n in zip(cols, offsets, counts):
+        a[lo:lo + n], b[lo:lo + n], keep[lo:lo + n] = x, y, True
+    put = [torch.from_numpy(x).to(dev) for x in (a, b, keep)]
+    return put[0], put[1], [int(o) for o in offsets], \
+        (None if wire16 else put[2]), bases
+
+
+def depth_batch_phase(dev, shard: int = SHARD, most: int = 2_000_000,
+                      sizes=DB_SIZES, timed: int | None = DB_TIMED) -> dict:
+    """Phase 3b: the batched depth launch (fused_depth_batch, one launch
+    for B samples over one region) bitwise against its plain version and
+    against B single launches, dense outputs, at B in ``sizes`` on both
+    wires (the int32 one with a 70,000-base segment in sample 1,
+    over the whole shard; the u16 one over a region strictly inside it);
+    the bytes a dense=False batch allocates beyond its outputs (fails at
+    a per-base int32 buffer); the time of one batch of ``timed`` against
+    as many single launches, and its bound."""
+    import torch
+
+    from goleft_tpu_torch.ops import depth_kernel as dk
+
+    rng = np.random.default_rng(77)
+    w0, pool, (ls, le) = depth_batch_samples(rng, max(sizes), shard, most)
+    full = (w0, w0, w0 + shard, CAP, MIN_COV, MAX_MEAN, shard, WINDOW)
+    inner = (w0, w0 + 130, w0 + shard - 100, CAP, MIN_COV, MAX_MEAN, shard,
+             WINDOW)
+    out = {"checked": 0, "max_abs_err": 0}
+    for wire in ("u16", "int32"):
+        for nb in sizes:
+            samples = list(pool[:nb])
+            if wire == "int32":  # into sample 1 (sample 0 alone)
+                j = min(1, nb - 1)
+                s, e = samples[j]
+                samples[j] = (np.append(s, ls), np.append(e, le))
+            args = inner if wire == "u16" else full
+            a, b, offsets, keep, bases = _batch_inputs(dev, samples,
+                                                       wire == "u16")
+            before = dict(dk.LAUNCHES)
+            got = dk.fused_depth_batch(a, b, offsets, *args, keep=keep,
+                                       bases=bases, dense=True)
+            assert dk.LAUNCHES["depth"] == before["depth"] + 1, \
+                "a batch is one counted launch"
+            want = dk.fused_depth_batch_plain(a, b, offsets, *args,
+                                              keep=keep, bases=bases)
+            singles = []
+            for i in range(nb):
+                lo, hi = offsets[i], offsets[i + 1]
+                if wire == "u16":
+                    singles.append(dk.fused_depth_wire(
+                        a[lo:hi], b[lo:hi], bases[i], *args, dense=True))
+                else:
+                    singles.append(dk.fused_depth(
+                        a[lo:hi], b[lo:hi], keep[lo:hi], *args, dense=True))
+            torch.cuda.synchronize()
+            for nm, g, w in zip(("sums", "packed", "cls", "depth"), got,
+                                want):
+                if g.dtype != w.dtype or g.shape != w.shape \
+                        or not torch.equal(g, w):
+                    raise AssertionError(
+                        f"batched depth launch ({wire} wire, B = {nb}): "
+                        f"{nm} differs from the plain version")
+                for i, one in enumerate(singles):
+                    if not torch.equal(g[i], one[("sums", "packed", "cls",
+                                                  "depth").index(nm)]):
+                        raise AssertionError(
+                            f"batched depth launch ({wire} wire, B = "
+                            f"{nb}): sample {i}'s {nm} differs from its "
+                            "single launch")
+            if nb > DB_EMPTY:
+                assert int(got[3][DB_EMPTY].abs().sum()) == 0
+            out["checked"] += 1
+            del got, want, singles
+    # bytes beyond the outputs: no per-base int32 buffer on the u16 wire
+    nb = max(sizes)
+    a, b, offsets, keep, bases = _batch_inputs(dev, pool[:nb], True)
+    n_win, plen = shard // WINDOW, (shard + 3) // 4
+    outputs = nb * (4 * n_win + (plen + 15) // 16 * 16)
+    scratch = depth_scratch_bytes(dev, lambda dense: dk.fused_depth_batch(
+        a, b, offsets, *inner, bases=bases, dense=dense))
+    out["scratch_bytes"] = scratch
+    out["output_bytes"] = outputs
+    assert scratch - outputs < 4 * shard, \
+        f"a dense=False batch of {nb} allocates {scratch} bytes"
+    log(f"batched depth launch: B = {', '.join(map(str, sizes))} on both "
+        f"wires ({out['checked']} launches), bitwise equal to the plain "
+        f"version and to B single launches (sums, packed, classes, "
+        f"depth); a dense=False batch of {nb} allocates {scratch} bytes, "
+        f"{outputs} of them outputs")
+    if timed:
+        a, b, offsets, keep, bases = _batch_inputs(dev, pool[:timed], True)
+        views = [(a[offsets[i]:offsets[i + 1]], b[offsets[i]:offsets[i + 1]],
+                  bases[i]) for i in range(timed)]
+
+        def singles():
+            for x, y, base in views:
+                dk.fused_depth_wire(x, y, base, *inner)
+
+        ms = cuda_median_ms(lambda: dk.fused_depth_batch(
+            a, b, offsets, *inner, bases=bases))
+        single_ms = cuda_median_ms(singles)
+        n_in = offsets[-1]
+        bytes_moved = 4 * n_in + timed * (4 * n_win + plen)
+        ops = timed * 8 * shard + 10 * n_in
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / INT_OPS_PER_S * 1e3
+        out.update(b=timed, ms=ms, singles_ms=single_ms, entries=n_in,
+                   bytes=bytes_moved, bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        log(f"batched depth launch, B = {timed} on the u16 wire ({n_in} "
+            f"entries): median {ms:.4f} ms by events around one launch "
+            f"against {single_ms:.4f} ms for {timed} single launches; bound "
+            f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {bytes_moved} "
+            f"bytes)")
+    return out
+
+
 def fabricate(workdir: str, rng):
     """Phase 4 input: reads, BAM + BAI, FASTA."""
     from goleft_tpu_torch.io.bai import write_bai
@@ -734,7 +926,7 @@ def e2e_phase(root: str, workdir: str):
 PH_B = 4096  # pairs of the kernel phase's main bucket
 PH_READ, PH_HAP = 150, 416  # r_pad 160 (r1 161), h_pad 416
 PH_LONG = (1100, 1200, 8)  # read bp, hap bp, pairs: r1 1121, two strips
-PH_WINDOWS, PH_WINDOW_READS = 1000, 80
+PH_WINDOWS, PH_WINDOW_READS = 500, 80
 PH_ORACLE_WINDOWS = 20
 PH_FAULT_SPEC = "pairhmm:every=1:permanent:times=99"
 # r1 values that reach each compiled R (r1 = 32 R) and the first r1 of
@@ -1227,7 +1419,7 @@ def read_manifest(path: str, prog: str):
 
 def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     """``python -m goleft_tpu_torch pairhmm`` at full width in a fresh
-    process: 1,000 windows x 4 haplotypes x 80 reads of 150 bp, ~80% of
+    process: 500 windows x 4 haplotypes x 80 reads of 150 bp, ~80% of
     them selected by a candidates BED; table rows, launch count, a
     20-window oracle subset; then a permanent fault quarantines and the
     run exits 3."""
@@ -1604,12 +1796,15 @@ def rans_kernel_checks(dev) -> float:
     return max_err
 
 
-def rans_kernel_phase(dev, crams) -> dict:
+def rans_kernel_phase(dev, crams, pool) -> tuple:
     """The rANS kernel against its plain version, bitwise, on the flag
     matrix (rans_kernel_checks) and on one real 10,000-record container
     of each codec of the cohort; the device decode (kernel + expansions +
     interleave) against the data and the host decoder; times and bounds
-    of each container."""
+    of each container. The containers' plain versions run in ``pool``'s
+    worker processes while later phases go on → (results, finish):
+    ``finish()`` waits for them, holds every group bitwise against them
+    and adds the plain times and the max abs error to the results."""
     import torch
 
     from goleft_tpu_torch.io import rans_nx16 as rx
@@ -1623,76 +1818,78 @@ def rans_kernel_phase(dev, crams) -> dict:
     # on the host CPU (on the card each of its rounds is a few dozen small
     # launches, minutes at 375,000 rounds), the three containers at once
     # in worker processes, started first (the ORDER1 container takes
-    # longest, about 100 s) while the card runs the checks and times the
-    # kernel
+    # longest, about 100 s) while the card runs the checks, times the
+    # kernel and goes on to the cohort phases
     pending = []
-    with ProcessPoolExecutor(3, mp_context=mp.get_context("spawn")) as pool:
-        containers = []
-        for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
-            raws = [rb for rb in first_container_blocks(crams[k])
-                    if rb.method == M_RANSNX16]
-            cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
-            assert all(p is not None for p in cplans), label
-            groups = rans_groups(cplans, dev)
-            fut = pool.submit(rans_plain_on_host, [
-                (key, grp, {n: v.cpu() for n, v in t.items()})
-                for key, grp, t in groups])
-            containers.append((label, raws, cplans, groups, fut))
-        max_err = rans_kernel_checks(dev)
-        for label, raws, cplans, groups, fut in containers:
-            t0 = time.perf_counter()
-            dec = rd.decode_parsed(cplans, device=dev)
-            for rb, g in zip(raws, dec):
-                if g != rx.decode(rb.raw, rb.rsize):
-                    raise AssertionError(f"{label} container: block "
-                                         f"{rb.content_id} differs from the "
-                                         "host decoder")
-            check_s = time.perf_counter() - t0
+    containers = []
+    for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
+        raws = [rb for rb in first_container_blocks(crams[k])
+                if rb.method == M_RANSNX16]
+        cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
+        assert all(p is not None for p in cplans), label
+        groups = rans_groups(cplans, dev)
+        fut = pool.apply_async(rans_plain_on_host, ([
+            (key, grp, {n: v.cpu() for n, v in t.items()})
+            for key, grp, t in groups],))
+        containers.append((label, raws, cplans, groups, fut))
+    max_err = rans_kernel_checks(dev)
+    for label, raws, cplans, groups, fut in containers:
+        t0 = time.perf_counter()
+        dec = rd.decode_parsed(cplans, device=dev)
+        for rb, g in zip(raws, dec):
+            if g != rx.decode(rb.raw, rb.rsize):
+                raise AssertionError(f"{label} container: block "
+                                     f"{rb.content_id} differs from the "
+                                     "host decoder")
+        check_s = time.perf_counter() - t0
 
-            def launch_all():
-                for key, grp, t in groups:
-                    rd.group_stage(key, grp, t)
+        def launch_all():
+            for key, grp, t in groups:
+                rd.group_stage(key, grp, t)
 
-            ms = cuda_median_ms(launch_all, reps=5)
-            flat = [c for p in cplans
-                    for c in (p.children if p.stripe else [p]) if not c.cat]
+        ms = cuda_median_ms(launch_all, reps=5)
+        flat = [c for p in cplans
+                for c in (p.children if p.stripe else [p]) if not c.cat]
 
-            def rounds_of(c):
-                return rk.rounds_needed(torch.tensor([c.inner_len]),
-                                        c.n_states, c.order1)
+        def rounds_of(c):
+            return rk.rounds_needed(torch.tensor([c.inner_len]),
+                                    c.n_states, c.order1)
 
-            longest = max(flat, key=rounds_of)
-            rounds = rounds_of(longest)
-            # the longest stream alone: its rounds without the container's
-            # other launches queued before or after it on the stream
-            (lkey, lgrp, lt), = rans_groups([longest], dev)
-            lone_ms = cuda_median_ms(lambda: rd.group_stage(lkey, lgrp, lt),
-                                     reps=5)
-            nbytes = sum(c.payload_bytes + c.table_bytes + c.inner_len
-                         for c in flat)
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = 16 * sum(c.inner_len for c in flat) / INT_OPS_PER_S * 1e3
-            cyc = RANS_CYCLES_PER_ROUND[label]
-            res = {"ms": ms, "launches_per_container": len(groups),
-                   "group_keys": [list(k) for k, _, _ in groups],
-                   "streams": len(flat), "longest_rounds": rounds,
-                   "cycles_per_round": ms * 1e-3 * clock / rounds,
-                   "longest_stream_ms": lone_ms,
-                   "longest_stream_cycles_per_round":
-                       lone_ms * 1e-3 * clock / rounds,
-                   "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
-                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "chain_cycles_per_round": cyc,
-                   "chain_bound_ms": rounds * cyc / clock * 1e3,
-                   "sm_clock_hz": clock,
-                   "qs_bytes": max(rb.rsize for rb in raws)}
-            out[label] = res
-            pending.append((label, groups, fut, len(raws), len(flat),
-                            check_s))
+        longest = max(flat, key=rounds_of)
+        rounds = rounds_of(longest)
+        # the longest stream alone: its rounds without the container's
+        # other launches queued before or after it on the stream
+        (lkey, lgrp, lt), = rans_groups([longest], dev)
+        lone_ms = cuda_median_ms(lambda: rd.group_stage(lkey, lgrp, lt),
+                                 reps=5)
+        nbytes = sum(c.payload_bytes + c.table_bytes + c.inner_len
+                     for c in flat)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = 16 * sum(c.inner_len for c in flat) / INT_OPS_PER_S * 1e3
+        cyc = RANS_CYCLES_PER_ROUND[label]
+        res = {"ms": ms, "launches_per_container": len(groups),
+               "group_keys": [list(k) for k, _, _ in groups],
+               "streams": len(flat), "longest_rounds": rounds,
+               "cycles_per_round": ms * 1e-3 * clock / rounds,
+               "longest_stream_ms": lone_ms,
+               "longest_stream_cycles_per_round":
+                   lone_ms * 1e-3 * clock / rounds,
+               "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "chain_cycles_per_round": cyc,
+               "chain_bound_ms": rounds * cyc / clock * 1e3,
+               "sm_clock_hz": clock,
+               "qs_bytes": max(rb.rsize for rb in raws)}
+        out[label] = res
+        pending.append((label, groups, fut, len(raws), len(flat),
+                        check_s))
+    out["max_abs_err"] = max_err
+
+    def finish():
         for label, groups, fut, n_raws, n_flat, check_s in pending:
-            wants, plain_s = fut.result()
+            wants, plain_s = fut.get()
             _, err = rans_bitwise(groups, f"{label} container", wants)
-            max_err = max(max_err, err)
+            out["max_abs_err"] = max(out["max_abs_err"], err)
             res = out[label]
             rounds, cyc = res["longest_rounds"], res["chain_cycles_per_round"]
             res["plain_ms"] = plain_s * 1e3
@@ -1713,8 +1910,8 @@ def rans_kernel_phase(dev, crams) -> dict:
                 f"({res['bound_by']}: {res['bytes']} bytes), dependence "
                 f"chain {res['chain_bound_ms']:.3f} ms ({rounds} rounds x "
                 f"{cyc} cycles); library: none")
-    out["max_abs_err"] = max_err
-    return out
+
+    return out, finish
 
 
 def cohort_fabricate(workdir: str, rng, n_reads=CO_READS, contig_len=CO_LEN,
@@ -2422,7 +2619,7 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
         f"stage seconds: "
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(em_stages.items())))
     return {"runs": runs, "cpu_s": cpu_s, "calls": len(calls),
-            "bams": bams, "cohortdepth_launches": cd_launches,
+            "bams": bams, "fa": fa, "cohortdepth_launches": cd_launches,
             "emdepth": {"wall_s": wall, "command_s": em_s,
                         "stage_seconds": em_stages,
                         "window_samples_per_s":
@@ -2456,7 +2653,7 @@ NORM_CYCLES_PER_BIN = 28
 #: run A (the reference's headline: 30 samples, reports), run B (cohort
 #: scale, -n), the kill-and-resume runs (30 samples, -n)
 IC_HEADLINE = 30
-IC_SAMPLES = 500
+IC_SAMPLES = 150
 IC_KILL = "shard:after=5:kill"
 #: planted on the fabricated cohort: three latent factors a sample
 #: (normal, these standard deviations of relative depth), each a sine wave
@@ -3048,7 +3245,7 @@ def indexcov_phase(root: str, workdir: str):
     files in fresh processes (launch counts from --metrics-out) →
     (results, (the .bai paths, the .fai, run B's output directory)): run A,
     30 samples with the reports, against a numpy oracle and the port's
-    CPU path; run B, 500 samples with -n (22 indexcov_norm launches),
+    CPU path; run B, IC_SAMPLES with -n (22 indexcov_norm launches),
     its chr21 rows against the CPU path's -c chr21 -n; a 30-sample -n
     run killed by shard:after=5:kill, resumed (the same bytes, fewer
     launches) and resumed again (0 launches)."""
@@ -3210,15 +3407,16 @@ def indexcov_phase(root: str, workdir: str):
         f"the complete store; both byte-identical to run C ({full} "
         f"launches)")
     return {"fabricate_s": fab_s, "bins_a_sample": n_bins,
-            "pillow": pillow, "runs": runs}, (bais, fai, out_b)
+            "pillow": pillow, "runs": runs, "out_c": out_c}, \
+        (bais, fai, out_b)
 
 
 # ---- cohortscan and multidepth phases ---------------------------------
 
-#: cohortscan's sample chunks: phase 14's 500 samples in 4 chunks
-CS_CHUNK = 128
+#: cohortscan's sample chunks: phase 14's 150 samples in 4 chunks
+CS_CHUNK = 38
 #: the kill and append runs: the first CS_FIRST samples, then all of them
-CS_FIRST = 450
+CS_FIRST = 135
 #: --pca sharded's power iterations (cohort/pca.py's default)
 CS_ITERS = 32
 CS_STAGES = ("index_load", "spill", "norm_scalars", "normalize",
@@ -3931,6 +4129,9 @@ def map_phase(root: str, workdir: str, dev, tools_bam: str) -> dict:
         fh.write(b"".join(recs[:MAP_BATCH]))
     first = "".join(row + "\n" for row in rows
                     if int(row.split("\t")[3][1:]) < MAP_BATCH)
+    first_tsv = os.path.join(workdir, "map_first.tsv")
+    with open(first_tsv, "w") as fh:
+        fh.write(first)
     cpu_tup = os.path.join(workdir, "map_cpu.tsv")
     t0 = time.perf_counter()
     assert run_map(fa, fq1, out=cpu_tup, device="cpu") == 0
@@ -4054,7 +4255,258 @@ def map_phase(root: str, workdir: str, dev, tools_bam: str) -> dict:
             "reads_per_s": MAP_READS / cmd_s, "mapped": len(rows),
             "placed": placed, "launches": launches, "cpu_s": cpu_s,
             "seed_ms": seed_ms, "tools_s": tools_s, "tool_rows": tool_rows,
-            "depth_max_abs_err": depth_err, "depth_segments": depth_segs}
+            "depth_max_abs_err": depth_err, "depth_segments": depth_segs,
+            "fixture": {"fa": fa, "fq1": fq1, "first_tsv": first_tsv}}
+
+
+SV_BURST = 8  # concurrent /v1/depth requests of the burst
+SV_SCAN = 30  # .bai files of the /v1/cohortscan request
+SV_TIMEOUT = 600  # the deadline of the longer requests, queue included
+
+
+def _serve_start(root: str, workdir: str, env: dict, *extra: str):
+    """``python -m goleft_tpu_torch serve --port 0`` in a fresh process
+    (its defaults: --max-batch 16, continuous batching), with a session
+    cache, --metrics-out and the flags ``extra`` → (process, base URL,
+    manifest path, stderr path). Waits for its ``listening on`` line."""
+    import queue
+    import threading
+
+    rep = os.path.join(workdir, "serve_report.json")
+    err = os.path.join(workdir, "serve.stderr")
+    errf = open(err, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "goleft_tpu_torch", "--metrics-out", rep,
+         "serve", "--port", "0", "--cache", os.path.join(workdir, "sv_cache"),
+         "--flight-dir", workdir, *extra],
+        cwd=root, env=env, stdout=subprocess.PIPE, stderr=errf, text=True)
+    errf.close()
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    t_end = time.monotonic() + 300
+    while True:
+        try:
+            line = lines.get(timeout=max(0.1, t_end - time.monotonic()))
+        except queue.Empty:
+            raise AssertionError("serve printed no listening line:\n"
+                                 + open(err).read()[-4000:])
+        m = re.search(r"listening on (http://\S+)", line)
+        if m:
+            return proc, m.group(1), rep, err
+
+
+def serve_phase(root: str, workdir: str, fx: dict) -> dict:
+    """Phase 19: ``python -m goleft_tpu_torch serve`` in a fresh process,
+    every endpoint against the earlier phases' one-shot outputs: /v1/depth
+    on phase 4's BAM (the oracle's BEDs); a burst of SV_BURST concurrent
+    /v1/depth requests on phase 12's BAMs (<= 2 batched launches a
+    region, each response the BAM served alone, one the one-shot CLI's
+    BEDs); /v1/pairhmm on phase 6's windows (its table); /v1/cohortdepth
+    --decode-device on phase 7's CRAMs (phase 9's matrix); /v1/cohortscan
+    -n on SV_SCAN of phase 14's .bai files (phase 14's uninterrupted
+    30-sample -n run: bed.gz and .roc, the .ped but its PCs, which hold
+    up to sign); /v1/map with window on phase 18's first batch (the CLI's
+    tuples, the CPU path's bed); the depth request again (cached, no
+    launch); /healthz, /debug/compiles, /debug/memory, Prometheus
+    /metrics; SIGTERM → exit 0; the launches of its --metrics-out
+    manifest against /metrics and the earlier phases' counts."""
+    import signal
+    import threading
+
+    from goleft_tpu_torch.commands.map_cmd import DEFAULT_WINDOW
+    from goleft_tpu_torch.mapping import pipeline
+    from goleft_tpu_torch.serve.client import ServeClient
+
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    t_start = time.perf_counter()
+    proc, url, rep_path, err_path = _serve_start(root, workdir, env)
+    up_s = time.perf_counter() - t_start
+    out = {"up_s": up_s, "latency_client_s": {}}
+    client = ServeClient(url, timeout_s=900)
+
+    def timed(kind, fn):
+        t0 = time.perf_counter()
+        r = fn()
+        out["latency_client_s"].setdefault(kind, []).append(
+            time.perf_counter() - t0)
+        return r
+
+    def passes():
+        return client.metrics()["counters"].get("device_passes_total", 0)
+
+    try:
+        bam, fa, want_d, want_c = fx["depth"]
+        depth_req = dict(reference=fa, window=WINDOW, maxmeandepth=MAX_MEAN)
+        r = timed("depth", lambda: client.depth(bam, **depth_req))
+        _same_bytes("serve /v1/depth depth.bed (phase 4's oracle)",
+                    r["depth_bed"], want_d)
+        _same_bytes("serve /v1/depth callable.bed (phase 4's oracle)",
+                    r["callable_bed"], want_c)
+        assert r["shards"] == -(-E2E_LEN // SHARD) and "cached" not in r
+
+        cnv_bams, cnv_fa = fx["cnv_bams"][:SV_BURST], fx["cnv_fa"]
+        m0 = client.metrics()
+        burst = [None] * len(cnv_bams)
+        errs = []
+
+        def fire(i):
+            try:
+                burst[i] = ServeClient(url, timeout_s=900).depth(
+                    cnv_bams[i], reference=cnv_fa, window=WINDOW)
+            except Exception as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=fire, args=(i,))
+              for i in range(len(cnv_bams))]
+        t0 = time.perf_counter()
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(timeout=900)
+        burst_s = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        m1 = client.metrics()
+        burst_passes = m1["counters"]["device_passes_total"] \
+            - m0["counters"].get("device_passes_total", 0)
+        regions = burst[0]["shards"]
+        hist = {int(k): v - m0["batch_size_hist"].get(k, 0)
+                for k, v in m1["batch_size_hist"].items()
+                if v - m0["batch_size_hist"].get(k, 0)}
+        assert sum(k * v for k, v in hist.items()) == len(cnv_bams), hist
+        assert burst_passes <= 2 * regions, (burst_passes, regions, hist)
+        for i, b in enumerate(cnv_bams):
+            alone = timed("depth", lambda b=b, i=i: client.depth(
+                b, reference=cnv_fa, window=WINDOW, cache_buster=f"solo{i}"))
+            for k in ("depth_bed", "callable_bed"):
+                _same_bytes(f"serve burst {k} of {os.path.basename(b)} "
+                            "(served alone)", burst[i][k], alone[k])
+        prefix = os.path.join(workdir, "sv_oneshot")
+        r1, _ = _run_cli(root, ["depth", "--prefix", prefix, "-r", cnv_fa,
+                                "-w", str(WINDOW), cnv_bams[0]], env)
+        assert r1.returncode == 0, r1.stderr[-4000:]
+        for k, suf in (("depth_bed", ".depth.bed"),
+                       ("callable_bed", ".callable.bed")):
+            with open(prefix + suf) as fh:
+                _same_bytes(f"serve burst {k} (the one-shot depth CLI)",
+                            burst[0][k], fh.read())
+        log(f"serve: a burst of {len(cnv_bams)} /v1/depth requests "
+            f"({regions} region a BAM) took {burst_passes} batched launches "
+            f"of the depth kernel, batch sizes {hist}, "
+            f"{len(cnv_bams) / burst_s:.2f} requests/s ({burst_s:.3f} s); "
+            "each response equal to the BAM served alone, the first to the "
+            "one-shot CLI")
+
+        ph = fx["pairhmm"]
+        r = timed("pairhmm", lambda: client.pairhmm(
+            ph["windows"], candidates=ph["candidates"]))
+        with open(ph["table"]) as fh:
+            _same_bytes("serve /v1/pairhmm (phase 6's table)",
+                        r["likelihoods_tsv"], fh.read())
+
+        r = timed("cohortdepth", lambda: client.cohortdepth(
+            fx["crams"], fai=fx["cram_fai"], window=CO_WINDOW,
+            decode_device=True, timeout_s=SV_TIMEOUT))
+        _same_bytes("serve /v1/cohortdepth (phase 9's matrix)",
+                    r["matrix_tsv"], fx["matrix"])
+
+        bais = fx["bais"][:SV_SCAN]
+        r = timed("cohortscan", lambda: client._request("/v1/cohortscan", {
+            "bams": bais, "fai": fx["ic_fai"], "extranormalize": True,
+            "timeout_s": SV_TIMEOUT}))
+        want_dir = fx["ic_out"]
+        name = os.path.basename(want_dir)
+        with gzip.open(os.path.join(want_dir, f"{name}-indexcov.bed.gz"),
+                       "rb") as fh:
+            want_bed = fh.read()
+        assert gzip.decompress(base64.b64decode(r["bed_gz_b64"])) \
+            == want_bed, "serve /v1/cohortscan bed.gz differs"
+        with open(os.path.join(want_dir, f"{name}-indexcov.roc")) as fh:
+            _same_bytes("serve /v1/cohortscan .roc", r["roc"], fh.read())
+        got_ped = os.path.join(workdir, "sv_scan.ped")
+        with open(got_ped, "w") as fh:
+            fh.write(r["ped"])
+        _compare_ped(os.path.join(want_dir, f"{name}-indexcov.ped"), got_ped)
+
+        mp = fx["map"]
+        r = timed("map", lambda: client.map(mp["fq1"], mp["fa"],
+                                            window=DEFAULT_WINDOW))
+        with open(mp["first_tsv"]) as fh:
+            first = fh.read()
+        _same_bytes("serve /v1/map tuples (the CLI's first batch)",
+                    r["tuples_tsv"], first)
+        want_bed = pipeline.depth_bed_from_tuples(
+            pipeline.parse_tuples(first.encode()), dict(MAP_CONTIGS),
+            DEFAULT_WINDOW, device="cpu").decode()
+        _same_bytes("serve /v1/map depth bed (the CPU path's)",
+                    r["depth_bed"], want_bed)
+        map_chroms = len({row.split("\t")[0] for row in first.splitlines()})
+
+        before = passes()
+        r = timed("depth_cached", lambda: client.depth(bam, **depth_req))
+        assert r.get("cached") is True and passes() == before
+        assert r["depth_bed"] == want_d
+
+        health = client.healthz()
+        import torch
+
+        assert health["platform"] == "gpu" and health["devices"] \
+            == torch.cuda.device_count(), health
+        assert health["device_kind"] == torch.cuda.get_device_name(0)
+        comp = client._request("/debug/compiles")
+        built = {b["family"] for b in comp["builds"]}
+        assert {"depth", "pairhmm", "rans", "indexcov_norm",
+                "swalign"} <= built, comp["builds"]
+        assert any(s["family"] == "depth" for s in comp["signatures"])
+        mem = client._request("/debug/memory")
+        assert mem["device"]["peak_bytes"] > 0 \
+            and mem["device"]["reserved_bytes"] > 0, mem["device"]
+        prom = client.metrics_prometheus()
+        assert "serve_requests_total_depth" in prom
+        final = client.metrics()
+    except BaseException:
+        proc.kill()
+        proc.wait(timeout=60)
+        log("serve stderr:\n" + open(err_path).read()[-4000:])
+        raise
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=300)
+    stderr = open(err_path).read()
+    assert rc == 0, (rc, stderr[-4000:])
+    rep, cmd_s, stages = read_manifest(rep_path, "serve")
+    launches = rep["kernel_launches"]
+    # warmup 1, phase 4's BAM a launch a region, the burst, the 8 alone,
+    # and map's bed a launch a chromosome; the cached request none
+    want_depth = 1 + -(-E2E_LEN // SHARD) + burst_passes \
+        + len(cnv_bams) + map_chroms
+    assert launches["depth"] == want_depth, (launches, want_depth)
+    assert launches["rans"] == fx["rans_launches"], launches
+    assert launches["pairhmm"] == fx["pairhmm_launches"], launches
+    assert launches["indexcov_norm"] >= 1 and launches["swalign"] >= 1
+    warm = re.search(r"warmup ([0-9.]+)s", stderr)
+    lat = {k: {q: v.get(q) for q in ("p50", "p99", "count")}
+           for k, v in final["latency_s"].items()}
+    out.update(launches=launches, burst_passes=burst_passes,
+               burst_batch_sizes=hist, regions=regions,
+               burst_requests_per_s=len(cnv_bams) / burst_s,
+               burst_s=burst_s, latency_s=lat,
+               stage_seconds=final["stage_seconds"],
+               warmup_s=float(warm.group(1)) if warm else None,
+               import_s=rep["import_seconds"], command_s=cmd_s,
+               counters={k: v for k, v in final["counters"].items()
+                         if not k.startswith("tenant.")})
+    log(f"serve: every endpoint byte-identical to the one-shot commands; "
+        f"up in {up_s:.2f} s (warmup {out['warmup_s']} s, import "
+        f"{out['import_s']:.3f} s); launches {launches}; latency (server, "
+        f"p50/p99 s) " + ", ".join(
+            f"{k} {v['p50']}/{v['p99']} (n={v['count']})"
+            for k, v in sorted(lat.items()))
+        + "; stage seconds " + json.dumps(final["stage_seconds"])
+        + f"; SIGTERM drained to exit 0 ({time.perf_counter() - t_start:.1f}"
+        " s in all)")
+    return out
 
 
 def build_kernels(mods) -> dict:
@@ -4129,8 +4581,15 @@ def main(argv=None) -> int:
     kernels = [depth, pairhmm, rans, norm, swk]
     results = {"provenance": prov, "build_s": built}
     workdir = os.path.join(root, "build", "chip_smoke")
+    # the rANS phase's plain versions on the host CPU, in worker processes
+    # that run on beside the cohort and flags phases
+    plain_pool = mp.get_context("spawn").Pool(3)
     try:
         results["kernel"] = kres = kernel_phase(dev)
+        results["depth_batch"] = dbres = depth_batch_phase(dev)
+        depth["batch"] = {k: dbres[k] for k in (
+            "b", "ms", "singles_ms", "bound_ms", "bound_by", "bytes",
+            "entries", "scratch_bytes", "output_bytes", "checked")}
         shutil.rmtree(workdir, ignore_errors=True)
         os.makedirs(workdir)
         # the Python processes this script starts share one bytecode
@@ -4165,7 +4624,8 @@ def main(argv=None) -> int:
             f"{CO_LEN} bp contig ({CO_RPC} records per container, "
             f"{sum(os.path.getsize(c) for c in crams)} bytes) and the "
             f"oracle matrix in {time.perf_counter() - t0:.1f} s")
-        results["rans_kernel"] = rres = rans_kernel_phase(dev, crams)
+        rres, rans_plain_checks = rans_kernel_phase(dev, crams, plain_pool)
+        results["rans_kernel"] = rres
         results["cohort_e2e"] = co = cohort_e2e_phase(root, workdir, crams,
                                                       fai, want)
         results["flags"] = flags_phase(
@@ -4173,6 +4633,7 @@ def main(argv=None) -> int:
             co["hybrid"]["launches"]["rans"],
             {"cohort": co["hybrid"]["command_s"],
              "pairhmm": pe2e["command_s"]}, args.trace_dir)
+        rans_plain_checks()
         results["em"] = em_phase(root, dev)
         results["cnv_e2e"] = cnv = cnv_e2e_phase(root, workdir)
         depth["cnv_launches"] = cnv["runs"]["device"]["launches"]["depth"]
@@ -4205,6 +4666,16 @@ def main(argv=None) -> int:
                                           depth_fixture[0])
         depth["map_launches"] = mres["launches"]["depth"]
         depth["map_max_abs_err"] = mres["depth_max_abs_err"]
+        results["serve"] = sv = serve_phase(root, workdir, {
+            "depth": depth_fixture, "cnv_bams": cnv["bams"],
+            "cnv_fa": cnv["fa"], "pairhmm": pe2e["fixture"],
+            "pairhmm_launches": pe2e["launches"], "crams": crams,
+            "cram_fai": fai, "matrix": want,
+            "rans_launches": co["hybrid"]["launches"]["rans"],
+            "bais": ic_fixture[0], "ic_fai": ic_fixture[1],
+            "ic_out": ic["out_c"], "map": mres["fixture"]})
+        depth["serve_launches"] = sv["launches"]["depth"]
+        depth["serve_burst_launches"] = sv["burst_passes"]
         swk.update(status="pass", launches=mres["launches"]["swalign"],
                    max_abs_err=sres["max_abs_err"], ms=sres["ms"],
                    plain_ms=sres["plain_ms"], bound_ms=sres["bound_ms"],
@@ -4212,6 +4683,8 @@ def main(argv=None) -> int:
                    plane_alloc_bytes=sres["plane_alloc_bytes"],
                    ptxas=sres["ptxas"])
     finally:
+        plain_pool.terminate()
+        plain_pool.join()
         shutil.rmtree(workdir, ignore_errors=True)
         print(json.dumps({"kernels": kernels}), flush=True)
         if args.out:

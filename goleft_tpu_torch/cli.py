@@ -93,6 +93,8 @@ PROGS = {
                 "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
     "samplename": ("report samples in a bam file",
                    _lazy(".commands.samplename")),
+    "serve": ("long-running coverage service with request micro-batching "
+              "on the CUDA card", _lazy(".commands.serve")),
 }
 
 _VALUE_FLAGS = {"--trace-out": "trace_out",

@@ -42,7 +42,7 @@ from ..ops.coverage import (
     window_bounds,
 )
 from ..ops.depth_pipeline import (
-    shard_depth_pipeline_cls_packed,
+    shard_depth_pipeline_batch_cls_packed, shard_depth_pipeline_cls_packed,
     shard_depth_pipeline_packed_cls_packed, unpack_cls_2bit,
 )
 from ..utils.xopen import xopen
@@ -193,6 +193,53 @@ class DepthEngine:
         # and unpack on the host with vectorized shifts
         cls = unpack_cls_2bit(cls_p, self.length)
         cls = cls[start - w0 : end - w0]
+        return starts, ends, sums, cls
+
+    def run_segments_batch(self, segs, start: int, end: int):
+        """B samples' filtered ``(seg_start, seg_end)`` arrays over the
+        same region in ONE kernel launch (the serve daemon's coalesced
+        /v1/depth pass). On the u16 wire when every sample packs, else
+        on the int32 wire; row i equals :meth:`run_segments` on sample i
+        alone, on either wire. Returns (starts, ends, sums (B, n_win),
+        cls (B, span)), as the JAX package's ``run_segments_batch``."""
+        w0 = start // self.window * self.window
+        assert end - w0 <= self.length
+        packs = [pack_segments_u16(ss, ee, slice(None)) for ss, ee in segs] \
+            if self.packed else [None]
+        wire16 = all(p is not None for p in packs)
+        # each sample's entries from a 16-byte boundary (8 u16 entries);
+        # the padding is zero-length entries, which add nothing
+        if wire16:
+            cols = [(p[0], p[1]) for p in packs]
+        else:
+            cols = [(np.asarray(ss, np.int32), np.asarray(ee, np.int32))
+                    for ss, ee in segs]
+        counts = [len(c[0]) for c in cols]
+        padded = [(n + 7) // 8 * 8 for n in counts]
+        offsets = np.concatenate([[0], np.cumsum(padded)]).astype(np.int64)
+        total = int(offsets[-1])
+        a = np.zeros(total, np.uint16 if wire16 else np.int32)
+        b = np.zeros_like(a)
+        keep = None if wire16 else np.zeros(total, bool)
+        for (x, y), lo, n in zip(cols, offsets, counts):
+            a[lo:lo + n] = x
+            b[lo:lo + n] = y
+            if keep is not None:
+                keep[lo:lo + n] = True
+        scalars = (w0, start, end, self.cap, self.min_cov, self.max_mean)
+        with self._lock:
+            sums, cls_p = obs.dispatch(
+                "depth", shard_depth_pipeline_batch_cls_packed,
+                self._put(a), self._put(b), offsets.tolist(), *scalars,
+                length=self.length, window=self.w_eff,
+                keep=None if keep is None else self._put(keep),
+                bases=[int(p[2]) for p in packs] if wire16 else None)
+            sums, cls_p = sums.cpu().numpy(), cls_p.cpu().numpy()
+        starts, ends, _, _ = window_bounds(start, end, self.window)
+        sums = sums[:, :len(starts)]
+        cls = np.stack([unpack_cls_2bit(row, self.length)[start - w0:end - w0]
+                        for row in cls_p]) if len(segs) else \
+            np.zeros((0, end - start), np.int8)
         return starts, ends, sums, cls
 
     def _put(self, arr: np.ndarray) -> torch.Tensor:

@@ -76,6 +76,18 @@
 // segment more (0.1908); 0.1577 on the int32 wire (0.2275), where the
 // scatter's 4 M global atomics take 0.098.
 //
+// A batch (the serve daemon's coalesced /v1/depth pass) runs B samples'
+// segments over the same region in the same three stream operations:
+// the samples' entries lie back to back (int64 entry offsets, a u16-wire
+// base a sample), the grids are (tiles, B) and blockIdx.y picks the
+// sample (sample_args). Each sample has its own workspace slab, laid out
+// for the batch's longest segment count: the zeroed heads of all samples
+// first, so that one memset zeroes them, then the tails. Tickets come
+// from the sample's own header, so a tile only waits on tiles of its own
+// sample that are already running; launch A's grid is as wide as the
+// longest sample, and the blocks a shorter sample does not need leave at
+// once. A single shard is a batch of one.
+//
 // Integer arithmetic that can wrap (start reconstruction, region clip,
 // prefix sums, carries) is done in uint32 so that it wraps exactly like
 // the int32 arithmetic of the reference. The tile decomposition of the
@@ -332,6 +344,77 @@ __device__ __forceinline__ void load16_u16(const uint16_t* p, long i0,
     }
 }
 
+struct TileArgs {
+    // the wires, the whole batch's (sample_args moves them to one
+    // sample's entries): u16 deltas + lengths, or int32 endpoints + keep
+    const uint16_t* deltas;
+    const uint16_t* lens;
+    const int32_t* seg_s;
+    const int32_t* seg_e;
+    const uint8_t* keep;
+    const long* offs;      // int64[B + 1] entry offsets; NULL: one sample
+    const int32_t* bases;  // int32[B] u16-wire bases; NULL: base
+    long n;                // entries (of sample 0 until sample_args)
+    int32_t base;
+    // sample 0's workspace; sample b's head lies b * head_stride bytes
+    // on, its tail b * tail_stride
+    Header* hd;
+    unsigned long long* flags;
+    int32_t* delta;              // int32 wire: the scattered deltas
+    unsigned long long* wsum;    // windows wider than a tile only
+    unsigned int* wcnt;
+    int32_t* cbase;              // u16 wire: launch A's outputs
+    int32_t* marks;
+    int32_t* reach;
+    long head_stride, tail_stride;
+    long length, window, tile, n_marks;
+    long wpt, n_win;  // windows a tile (0 when they cross tiles), in all
+    int32_t w0, rs, re, cap, min_cov, max_mean;
+    // outputs, row b of each for sample b
+    float* sums;       // [B][n_win]
+    uint8_t* packed;   // [B][ld_packed]
+    int32_t* depth_out;  // [B][ld_pos] or NULL
+    int8_t* cls_out;     // [B][ld_pos] or NULL
+    long ld_packed, ld_pos;
+};
+
+template <typename T>
+__device__ __forceinline__ T* shift(T* p, long bytes) {
+    return p ? (T*)((char*)p + bytes) : p;
+}
+
+// The arguments of sample blockIdx.y.
+__device__ __forceinline__ TileArgs sample_args(const TileArgs& a0) {
+    TileArgs a = a0;
+    const long b = blockIdx.y;
+    if (a.offs) {
+        const long o = a.offs[b];
+        a.n = a.offs[b + 1] - o;
+        a.deltas = shift(a.deltas, 2 * o);
+        a.lens = shift(a.lens, 2 * o);
+        a.seg_s = shift(a.seg_s, 4 * o);
+        a.seg_e = shift(a.seg_e, 4 * o);
+        a.keep = shift(a.keep, o);
+    }
+    if (a.bases) a.base = a.bases[b];
+    if (b) {
+        const long h = b * a.head_stride, t = b * a.tail_stride;
+        a.hd = shift(a.hd, h);
+        a.flags = shift(a.flags, h);
+        a.delta = shift(a.delta, h);
+        a.wsum = shift(a.wsum, h);
+        a.wcnt = shift(a.wcnt, h);
+        a.cbase = shift(a.cbase, t);
+        a.marks = shift(a.marks, t);
+        a.reach = shift(a.reach, t);
+        a.sums += b * a.n_win;
+        a.packed += b * a.ld_packed;
+        a.depth_out = shift(a.depth_out, 4 * b * a.ld_pos);
+        a.cls_out = shift(a.cls_out, b * a.ld_pos);
+    }
+    return a;
+}
+
 // Region clip of one segment, as _pipeline_body does it:
 // s = clip(max(seg_start, rs) - w0, 0, length), e likewise with
 // min(seg_end, re); keep-masked segments go to `length`.
@@ -364,19 +447,25 @@ __device__ __forceinline__ int sw(int k) { return k ^ ((k >> 5 & 3) << 2); }
 // each written only where some entry before it has not yet got there
 // (the rest is read off the header), by exactly one thread: starts and
 // furthest ends are non-decreasing.
-__global__ void __launch_bounds__(THREADS)
-wire_starts(const uint16_t* deltas, const uint16_t* lens, long n,
-            int32_t base, int32_t w0, long n_marks, Header* hd,
-            unsigned long long* flags, int32_t* cbase, int32_t* marks,
-            int32_t* reach) {
+__global__ void __launch_bounds__(THREADS) wire_starts(TileArgs a0) {
     __shared__ unsigned int tile_sh;
     // each thread's prefixes and lengths, [k][thread]: out of registers
     // during the look-back, and read back without bank conflicts
     __shared__ uint32_t q_sh[PER_THREAD][THREADS];
     __shared__ uint16_t l_sh[PER_THREAD][THREADS];
+    const TileArgs a = sample_args(a0);
+    const uint16_t* deltas = a.deltas;
+    const uint16_t* lens = a.lens;
+    const long n = a.n;
+    const int32_t base = a.base, w0 = a.w0;
+    Header* hd = a.hd;
+    int32_t* cbase = a.cbase;
+    int32_t* marks = a.marks;
+    int32_t* reach = a.reach;
     if (threadIdx.x == 0) tile_sh = atomicAdd(&hd->ticket, 1u);
     __syncthreads();
     const long tile = tile_sh;
+    if (tile * CHUNK >= n) return;  // a tile this sample does not need
     const long i0 = tile * CHUNK + (long)PER_THREAD * threadIdx.x;
     uint32_t total, live = 0;
     int r_thr = -1;  // furthest end, relative to the tile's base start
@@ -402,7 +491,7 @@ wire_starts(const uint16_t* deltas, const uint16_t* lens, long n,
     }
     int r_tile;
     const int r_ex = block_excl_max(r_thr, &r_tile);
-    const Prefix pre = lookback(flags, tile, total,
+    const Prefix pre = lookback(a.flags, tile, total,
                                 max(r_tile - (int)total, 0));
     // the start of entry tile*CHUNK - 1 (base for tile 0)
     const uint32_t tile_base = (uint32_t)base + pre.s;
@@ -414,7 +503,7 @@ wire_starts(const uint16_t* deltas, const uint16_t* lens, long n,
         cbase[i0 >> 5] = (int32_t)(tile_base + q_prev);
     const int32_t xp = (int32_t)(rel0 + q_prev);
     int rp = max(pre.d, r_ex);
-    const int g_max = (int)n_marks;
+    const int g_max = (int)a.n_marks;
     // the last mark passed by the start before, and the last mark at or
     // below the furthest end before (an arithmetic shift: floor division
     // by GRAIN); a mark is written where an entry moves past it
@@ -461,44 +550,18 @@ wire_starts(const uint16_t* deltas, const uint16_t* lens, long n,
 // Launch 1 of the int32 wire: absolute endpoints + keep mask, ±1 per
 // segment into the zeroed delta buffer (a segment whose clipped ends
 // coincide adds nothing, so keep-masked padding costs no atomics).
-__global__ void __launch_bounds__(THREADS)
-scatter_endpoints(const int32_t* seg_s, const int32_t* seg_e,
-                  const uint8_t* keep, long n, int32_t w0, int32_t rs,
-                  int32_t re, int32_t length, int32_t* delta) {
-    long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
-    if (i >= n) return;
+__global__ void __launch_bounds__(THREADS) scatter_endpoints(TileArgs a0) {
+    const TileArgs a = sample_args(a0);
+    const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+    if (i >= a.n) return;
     int32_t s, e;
-    clip_segment(seg_s[i], seg_e[i], keep[i] != 0, w0, rs, re, length, &s,
-                 &e);
+    clip_segment(a.seg_s[i], a.seg_e[i], a.keep[i] != 0, a.w0, a.rs, a.re,
+                 (int32_t)a.length, &s, &e);
     if (s != e) {  // +1 and -1 at one index cancel
-        atomicAdd(delta + s, 1);
-        atomicAdd(delta + e, -1);
+        atomicAdd(a.delta + s, 1);
+        atomicAdd(a.delta + e, -1);
     }
 }
-
-struct TileArgs {
-    // u16 wire: the wire and launch A's outputs
-    const uint16_t* deltas;
-    const int32_t* cbase;
-    const uint16_t* lens;
-    const int32_t* marks;
-    const int32_t* reach;
-    long n;
-    // int32 wire: the scattered deltas
-    const int32_t* delta;
-    Header* hd;
-    unsigned long long* flags;
-    long length, window, tile;
-    long wpt, n_win;  // windows a tile (0 when they cross tiles), in all
-    int32_t w0, rs, re, cap, min_cov, max_mean;
-    // windows wider than a tile only
-    unsigned long long* wsum;
-    unsigned int* wcnt;
-    float* sums;
-    uint8_t* packed;
-    int32_t* depth_out;
-    int8_t* cls_out;
-};
 
 // Depth and class of four consecutive positions from p (depth before
 // the cap: off + v[r]), 2 bits each, low first; with MASK the region
@@ -528,7 +591,8 @@ __device__ __forceinline__ uint32_t finish4(const TileArgs& a,
 // Launch B: one block per tile of positions, PER_THREAD consecutive
 // positions a thread (four packed class bytes).
 template <bool WIRE16>
-__global__ void __launch_bounds__(THREADS) depth_tiles(TileArgs a) {
+__global__ void __launch_bounds__(THREADS) depth_tiles(TileArgs a0) {
+    const TileArgs a = sample_args(a0);
     __shared__ __align__(16) int32_t sh[TILE_MAX];
     __shared__ long range_sh[2];
     __shared__ unsigned int tile_sh;
@@ -794,55 +858,73 @@ static Layout layout(int wire, long n, long length, long window,
 
 extern "C" {
 
-// Bytes of the workspace depth_pipeline_launch needs; *zeroed receives
-// how many of its first bytes the caller must zero.
+// Bytes of the workspace of a batch of `batch` samples of at most n
+// entries each; *zeroed receives how many of its first bytes the caller
+// must zero (every sample's head).
 long depth_workspace_bytes(int wire, long n, long length, long window,
-                           long tile, long* zeroed) {
+                           long tile, long batch, long* zeroed) {
     const Layout l = layout(wire, n, length, window, tile);
-    *zeroed = l.zeroed;
-    return l.total;
+    *zeroed = batch * l.zeroed;
+    return batch * l.total;
 }
 
-// Enqueue the pipeline for one shard on `stream`.
-//   wire 0: a = int32 seg_start[n], b = int32 seg_end[n], keep = u8[n]
-//   wire 1: a = u16 deltas[n], b = u16 lens[n], keep unused, base used
-// tile: positions a tile (a multiple of 16, at most 4,096); windows are
-// summed inside their tile when tile % window == 0.
-// ws: depth_workspace_bytes(...) bytes, 16-byte aligned, the first
-// *zeroed of them zero; sums: f32[length/window];
-// packed: u8[ceil(length/4)]; depth_out (int32[length]) and cls_out
-// (int8[length]) may be NULL, else 16-byte aligned. length must be a
-// multiple of window. Returns 0 or the CUDA error code of the first
-// failed launch.
-int depth_pipeline_launch(int wire, const void* a, const void* b,
-                          const uint8_t* keep, long n, int32_t base,
-                          int32_t w0, int32_t rs, int32_t re, int32_t cap,
-                          int32_t min_cov, int32_t max_mean, long length,
-                          long window, long tile, void* ws, float* sums,
-                          uint8_t* packed, int32_t* depth_out,
-                          int8_t* cls_out, void* stream) {
+// Enqueue the pipeline for a batch of `batch` samples over one region
+// on `stream`; a single shard is a batch of one with offs NULL.
+//   wire 0: a = int32 seg_start[], b = int32 seg_end[], keep = u8[]
+//   wire 1: a = u16 deltas[], b = u16 lens[], keep unused; sample s
+//           starts from bases[s] (base when bases is NULL)
+// offs: int64[batch + 1] device offsets of each sample's entries in a, b
+// and keep (NULL: one sample of n entries); n: the most entries of any
+// sample (the workspace's layout). tile: positions a tile (a multiple of
+// 16, at most 4,096); windows are summed inside their tile when
+// tile % window == 0. ws: depth_workspace_bytes(...) bytes, 16-byte
+// aligned, the first *zeroed of them zero. Row s of each output is
+// sample s's: sums f32[batch][length/window], packed
+// u8[batch][ld_packed], depth_out int32[batch][ld_pos] and cls_out
+// int8[batch][ld_pos] (both may be NULL); rows 16-byte aligned, packed
+// at least ceil(length/4) and the dense ones length wide. length must
+// be a multiple of window. Returns 0 or the CUDA error code of the
+// first failed launch.
+int depth_pipeline_batch_launch(
+    int wire, const void* a, const void* b, const uint8_t* keep,
+    const long* offs, const int32_t* bases, long n, long batch,
+    int32_t base, int32_t w0, int32_t rs, int32_t re, int32_t cap,
+    int32_t min_cov, int32_t max_mean, long length, long window,
+    long tile, void* ws, float* sums, uint8_t* packed, long ld_packed,
+    int32_t* depth_out, int8_t* cls_out, long ld_pos, void* stream) {
     if (tile < 16 || tile > TILE_MAX || tile % 16 || length < 1 ||
-        window < 1 || length % window)
+        window < 1 || length % window || batch < 1 || batch > 65535 ||
+        n < 0 || (batch > 1 && !offs))
         return (int)cudaErrorInvalidValue;
     cudaStream_t st = (cudaStream_t)stream;
     const Layout l = layout(wire, n, length, window, tile);
     char* w = (char*)ws;
+    char* tail = w + batch * l.zeroed - l.zeroed;  // sample 0's tail - zeroed
+    const bool wide = tile % window != 0;
     TileArgs t;
+    t.deltas = wire ? (const uint16_t*)a : nullptr;
+    t.lens = wire ? (const uint16_t*)b : nullptr;
+    t.seg_s = wire ? nullptr : (const int32_t*)a;
+    t.seg_e = wire ? nullptr : (const int32_t*)b;
+    t.keep = wire ? nullptr : keep;
+    t.offs = offs;
+    t.bases = wire ? bases : nullptr;
+    t.n = n;
+    t.base = base;
     t.hd = (Header*)w;
     t.flags = (unsigned long long*)(w + l.flags);
-    const bool wide = tile % window != 0;
+    t.delta = (int32_t*)(w + l.delta);
     t.wsum = wide ? (unsigned long long*)(w + l.wsum) : nullptr;
     t.wcnt = wide ? (unsigned int*)(w + l.wcnt) : nullptr;
-    t.deltas = (const uint16_t*)a;
-    t.cbase = (const int32_t*)(w + l.cbase);
-    t.lens = (const uint16_t*)b;
-    t.marks = (const int32_t*)(w + l.marks);
-    t.reach = (const int32_t*)(w + l.reach);
-    t.n = wire ? n : 0;
-    t.delta = (const int32_t*)(w + l.delta);
+    t.cbase = (int32_t*)(tail + l.cbase);
+    t.marks = (int32_t*)(tail + l.marks);
+    t.reach = (int32_t*)(tail + l.reach);
+    t.head_stride = l.zeroed;
+    t.tail_stride = l.total - l.zeroed;
     t.length = length;
     t.window = window;
     t.tile = tile;
+    t.n_marks = (length + GRAIN - 1) / GRAIN;
     t.wpt = wide ? 0 : tile / window;
     t.n_win = length / window;
     t.w0 = w0;
@@ -855,28 +937,27 @@ int depth_pipeline_launch(int wire, const void* a, const void* b,
     t.packed = packed;
     t.depth_out = depth_out;
     t.cls_out = cls_out;
-    const unsigned n_tiles = (unsigned)((length + tile - 1) / tile);
+    t.ld_packed = ld_packed;
+    t.ld_pos = ld_pos;
+    const dim3 tiles((unsigned)((length + tile - 1) / tile),
+                     (unsigned)batch);
     if (wire) {
         if (n > 0) {
-            wire_starts<<<(unsigned)((n + CHUNK - 1) / CHUNK), THREADS, 0,
-                          st>>>(
-                (const uint16_t*)a, (const uint16_t*)b, n, base, w0,
-                (length + GRAIN - 1) / GRAIN, t.hd, t.flags,
-                (int32_t*)(w + l.cbase), (int32_t*)(w + l.marks),
-                (int32_t*)(w + l.reach));
+            wire_starts<<<dim3((unsigned)((n + CHUNK - 1) / CHUNK),
+                               (unsigned)batch),
+                          THREADS, 0, st>>>(t);
             LAUNCH_CHECK();
         }
-        depth_tiles<true><<<n_tiles, THREADS, 0, st>>>(t);
+        depth_tiles<true><<<tiles, THREADS, 0, st>>>(t);
         LAUNCH_CHECK();
     } else {
         if (n > 0) {
-            scatter_endpoints<<<(unsigned)((n + THREADS - 1) / THREADS),
-                                THREADS, 0, st>>>(
-                (const int32_t*)a, (const int32_t*)b, keep, n, w0, rs, re,
-                (int32_t)length, (int32_t*)(w + l.delta));
+            scatter_endpoints<<<dim3((unsigned)((n + THREADS - 1) / THREADS),
+                                     (unsigned)batch),
+                                THREADS, 0, st>>>(t);
             LAUNCH_CHECK();
         }
-        depth_tiles<false><<<n_tiles, THREADS, 0, st>>>(t);
+        depth_tiles<false><<<tiles, THREADS, 0, st>>>(t);
         LAUNCH_CHECK();
     }
     return 0;

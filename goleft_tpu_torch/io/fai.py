@@ -7,6 +7,8 @@ A copy of the JAX package's io/fai.py: chromosome name/length lists for
 
 from __future__ import annotations
 
+import os
+import threading
 from dataclasses import dataclass
 
 import numpy as np
@@ -47,7 +49,10 @@ def read_fai(path: str) -> list[FaiRecord]:
 
 
 def write_fai(fasta_path: str) -> list[FaiRecord]:
-    """Index a FASTA file, writing ``<fasta>.fai``. For fixtures and -s."""
+    """Index a FASTA file, writing ``<fasta>.fai``. For fixtures and -s.
+    The index is written to a temporary file and renamed into place, so
+    a reader never sees half of one (serve's handler threads may index
+    the same reference at once)."""
     recs = []
     with open(fasta_path, "rb") as fh:
         name = None
@@ -76,10 +81,12 @@ def write_fai(fasta_path: str) -> list[FaiRecord]:
         if name is not None:
             recs.append(FaiRecord(name, length, offset, line_bases,
                                   line_width))
-    with open(fasta_path + ".fai", "w") as out:
+    tmp = f"{fasta_path}.fai.{os.getpid()}.{threading.get_ident()}.tmp"
+    with open(tmp, "w") as out:
         for r in recs:
             out.write(f"{r.name}\t{r.length}\t{r.offset}\t{r.line_bases}\t"
                       f"{r.line_width}\n")
+    os.replace(tmp, fasta_path + ".fai")
     return recs
 
 

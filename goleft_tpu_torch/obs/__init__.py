@@ -13,11 +13,13 @@ from __future__ import annotations
 import threading
 
 from .logging import configure as configure_logging, get_logger
-from .metrics import Counter, MetricsRegistry, REGISTRY, get_registry
+from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
+                      get_registry)
 from .tracing import Span, SpanContext, TRACER, Tracer, get_tracer
 
 __all__ = [
-    "Counter", "MetricsRegistry", "REGISTRY", "Span", "SpanContext",
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "REGISTRY", "Span",
+    "SpanContext",
     "TRACER", "Tracer", "attach", "capture", "configure_logging",
     "device_events_enabled", "device_span", "dispatch", "get_logger",
     "get_registry", "get_tracer", "set_device_events", "span", "trace",
@@ -32,10 +34,12 @@ def span(name: str, category: str = "", **attrs):
 
 
 def trace(name: str, kind: str = "run", trace_id: str | None = None,
-          **attrs):
+          remote_parent: int | None = None, **attrs):
     """Context manager: a run-scoped root span under a fresh trace id
-    (or the given one)."""
-    return TRACER.trace(name, kind=kind, trace_id=trace_id, **attrs)
+    (or the given one; ``remote_parent`` records a remote caller's
+    span)."""
+    return TRACER.trace(name, kind=kind, trace_id=trace_id,
+                        remote_parent=remote_parent, **attrs)
 
 
 def capture() -> SpanContext:

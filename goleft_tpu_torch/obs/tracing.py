@@ -1,6 +1,8 @@
 """Run-scoped hierarchical tracing: the counterpart of the JAX package's
-obs/tracing.py, trimmed to what the CLI's ``--trace-out`` needs (no
-completed-span listeners, no memory probe, no profiler hooks).
+obs/tracing.py, trimmed to what the CLI's ``--trace-out`` and the serve
+daemon need (completed-span listeners for serve's flight recorder, the
+adoption of a remote trace, the active traces the sampling profiler
+reads; no memory probe).
 
 Every CLI invocation runs under a *trace*: a string id grouping the
 spans that invocation caused, on every thread it touched. A *span* is
@@ -96,6 +98,12 @@ class Tracer:
         # off by default, so the launches stay asynchronous when nobody
         # is looking
         self.device_events = False
+        # completed-span listeners (serve's flight recorder): a tuple
+        # read without the lock, empty unless one registers
+        self._listeners: tuple = ()
+        # thread ident -> trace id of the threads inside trace(): the
+        # sampling profiler tags its stacks with them
+        self._active_traces: dict[int, str] = {}
 
     # ---- trace scoping ----
 
@@ -104,18 +112,41 @@ class Tracer:
 
     @contextlib.contextmanager
     def trace(self, name: str, kind: str = "run",
-              trace_id: str | None = None, **attrs):
+              trace_id: str | None = None,
+              remote_parent: int | None = None, **attrs):
         """Run-scoped root: sets this thread's trace id (a fresh one, or
         ``trace_id``) and opens the root span; yields the root
-        :class:`Span`."""
+        :class:`Span`. ``trace_id``/``remote_parent`` adopt a remote
+        context (the ``x-goleft-trace`` header): the foreign parent span
+        id is recorded as the ``remote_parent`` attribute, never as
+        ``parent_id``, which stays process-local."""
         prev = self._ctx.trace_id
         self._ctx.trace_id = trace_id if trace_id \
             else self.new_trace_id(kind)
+        if remote_parent is not None:
+            attrs = dict(attrs, remote_parent=remote_parent)
+        ident = threading.get_ident()
+        with self._lock:
+            self._active_traces[ident] = self._ctx.trace_id
         try:
             with self.span(name, **attrs) as root:
                 yield root
         finally:
             self._ctx.trace_id = prev
+            with self._lock:
+                if prev is not None:
+                    self._active_traces[ident] = prev
+                else:
+                    self._active_traces.pop(ident, None)
+
+    def current_trace_id(self) -> str | None:
+        return self._ctx.trace_id
+
+    def active_traces(self) -> dict[int, str]:
+        """{thread ident: trace id} of every thread inside
+        :meth:`trace`."""
+        with self._lock:
+            return dict(self._active_traces)
 
     # ---- span recording ----
 
@@ -140,6 +171,26 @@ class Tracer:
             if len(self._spans) == self._spans.maxlen:
                 self.spans_dropped += 1
             self._spans.append(sp)
+        for cb in self._listeners:
+            try:
+                cb(sp)
+            except Exception:  # noqa: BLE001 — a broken listener must
+                pass           # never fail the traced work
+
+    # ---- completed-span listeners ----
+
+    def add_listener(self, cb) -> None:
+        """Run ``cb(span)`` after every span completes (outside the ring
+        lock, on the recording thread)."""
+        with self._lock:
+            if cb not in self._listeners:
+                self._listeners = self._listeners + (cb,)
+
+    def remove_listener(self, cb) -> None:
+        # equality, not identity: a bound method is a fresh object at
+        # every attribute access, but compares equal to itself
+        with self._lock:
+            self._listeners = tuple(c for c in self._listeners if c != cb)
 
     @contextlib.contextmanager
     def span(self, name: str, category: str = "", **attrs):

@@ -14,6 +14,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 
 from ..device import KernelFault
 
@@ -39,7 +40,11 @@ def build(source: str, flags: list[str], what: str
     and flag set) and load it. Returns (library, the ptxas report of
     this process's build, or "" when the library was already built).
     Raises :class:`~goleft_tpu_torch.device.KernelFault` when nvcc is
-    missing or fails."""
+    missing or fails. The build (family, seconds, whether it was already
+    built) goes to the compile observatory (obs/compiles.py)."""
+    from ..obs.compiles import TRACKER
+
+    t0 = time.perf_counter()
     src = os.path.join(CSRC, source)
     with open(src, "rb") as fh:
         tag = hashlib.sha256(
@@ -56,4 +61,7 @@ def build(source: str, flags: list[str], what: str
             raise KernelFault(f"{what}: nvcc failed:\n{r.stderr[-4000:]}")
         log = r.stderr
         os.replace(tmp, out)
-    return ctypes.CDLL(out), log
+    lib = ctypes.CDLL(out)
+    TRACKER.record_build(stem.removesuffix("_kernel"),
+                         time.perf_counter() - t0, cached=not log)
+    return lib, log

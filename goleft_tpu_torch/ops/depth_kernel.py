@@ -53,12 +53,12 @@ def load_library() -> ctypes.CDLL:
                                      "depth kernel")
         p, i32, lng = ctypes.c_void_p, ctypes.c_int32, ctypes.c_long
         lib.depth_workspace_bytes.argtypes = [
-            ctypes.c_int, lng, lng, lng, lng, ctypes.POINTER(lng)]
+            ctypes.c_int, lng, lng, lng, lng, lng, ctypes.POINTER(lng)]
         lib.depth_workspace_bytes.restype = lng
-        lib.depth_pipeline_launch.argtypes = [
-            ctypes.c_int, p, p, p, lng, i32, i32, i32, i32, i32, i32, i32,
-            lng, lng, lng, p, p, p, p, p, p]
-        lib.depth_pipeline_launch.restype = ctypes.c_int
+        lib.depth_pipeline_batch_launch.argtypes = [
+            ctypes.c_int, p, p, p, p, p, lng, lng, i32, i32, i32, i32, i32,
+            i32, i32, lng, lng, lng, p, p, p, lng, p, p, lng, p]
+        lib.depth_pipeline_batch_launch.restype = ctypes.c_int
         lib.depth_kernel_error_string.argtypes = [ctypes.c_int]
         lib.depth_kernel_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -131,6 +131,29 @@ def fused_depth_wire_plain(deltas, lens, base, w0, rs, re, cap, min_cov,
                              max_mean, length, window)
 
 
+def fused_depth_batch_plain(a, b, offsets, w0, rs, re, cap, min_cov,
+                            max_mean, length, window, keep=None,
+                            bases=None):
+    """The plain version of a batch: each sample's plain version (the
+    u16 wire when ``bases`` is given, else the int32 wire with ``keep``)
+    on its entries ``offsets[s]:offsets[s + 1]``, stacked →
+    (sums (B, n_win), packed (B, ceil(length/4)), cls (B, length) i8,
+    depth (B, length) i32)."""
+    outs = []
+    for s in range(len(offsets) - 1):
+        lo, hi = int(offsets[s]), int(offsets[s + 1])
+        if bases is not None:
+            out = fused_depth_wire_plain(a[lo:hi], b[lo:hi], int(bases[s]),
+                                         w0, rs, re, cap, min_cov,
+                                         max_mean, length, window)
+        else:
+            out = fused_depth_plain(a[lo:hi], b[lo:hi], keep[lo:hi], w0, rs,
+                                    re, cap, min_cov, max_mean, length,
+                                    window)
+        outs.append(out)
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
 # ---- wrappers ---------------------------------------------------------
 
 def _check(t: torch.Tensor, dtype, name: str, n: int | None = None):
@@ -152,33 +175,62 @@ def tile_positions(window: int) -> int:
 
 
 @functools.lru_cache(maxsize=64)
-def _workspace(wire: int, n: int, length: int, window: int):
-    """(tile, workspace bytes, bytes to zero) of one launch."""
+def _workspace(wire: int, n: int, length: int, window: int, batch: int = 1):
+    """(tile, workspace bytes, bytes to zero) of one launch of ``batch``
+    samples of at most ``n`` entries each."""
     tile = tile_positions(window)
     zeroed = ctypes.c_long()
     total = load_library().depth_workspace_bytes(
-        wire, n, length, window, tile, ctypes.byref(zeroed))
+        wire, n, length, window, tile, batch, ctypes.byref(zeroed))
     return tile, total, zeroed.value
 
 
-def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
-            max_mean, length: int, window: int, dense: bool):
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def _launch(wire: int, a, b, keep, base, w0, rs, re, cap, min_cov,
+            max_mean, length: int, window: int, dense: bool,
+            offsets=None):
+    """One launch: a single shard (``offsets`` None; ``base`` an int)
+    or a batch (``offsets`` the B + 1 host entry offsets; ``base`` the
+    B u16-wire bases, None on the int32 wire), whose outputs gain a
+    leading batch axis."""
     if length < 1 or length % window or length >= 2**31 - TILE_MAX:
         raise ValueError(f"depth kernel: bad length {length} / window "
                          f"{window}")
     dev = a.device
     if b.device != dev or (keep is not None and keep.device != dev):
         raise ValueError("depth kernel: inputs on different devices")
-    n = a.shape[0]
+    batched = offsets is not None
+    if batched:
+        offsets = [int(o) for o in offsets]
+        nb = len(offsets) - 1
+        counts = np.diff(offsets)
+        if nb < 1 or offsets[0] != 0 or offsets[-1] != a.shape[0] \
+                or (counts < 0).any():
+            raise ValueError("depth kernel: bad batch offsets")
+        n = bucket_entries(int(counts.max()))
+    else:
+        nb, n = 1, a.shape[0]
     lib = load_library()
-    tile, total, zeroed = _workspace(wire, n, length, window)
+    tile, total, zeroed = _workspace(wire, n, length, window, nb)
+    n_win, plen = length // window, (length + 3) // 4
+    ld_packed, ld_pos = _align16(plen), _align16(length)
     ws = torch.empty(total, dtype=torch.uint8, device=dev)
-    sums = torch.empty(length // window, dtype=torch.float32, device=dev)
-    packed = torch.empty((length + 3) // 4, dtype=torch.uint8, device=dev)
-    depth = torch.empty(length, dtype=torch.int32, device=dev) if dense \
-        else None
-    cls = torch.empty(length, dtype=torch.int8, device=dev) if dense \
-        else None
+    sums = torch.empty((nb, n_win), dtype=torch.float32, device=dev)
+    packed = torch.empty((nb, ld_packed), dtype=torch.uint8, device=dev)
+    depth = torch.empty((nb, ld_pos), dtype=torch.int32, device=dev) \
+        if dense else None
+    cls = torch.empty((nb, ld_pos), dtype=torch.int8, device=dev) \
+        if dense else None
+    offs_d = bases_d = None
+    if batched:
+        offs_d = torch.tensor(offsets, dtype=torch.int64).to(dev)
+        if wire:
+            bases_d = torch.tensor([int(x) for x in base],
+                                   dtype=torch.int32).to(dev)
+        base = 0
 
     def ptr(t):
         return None if t is None or t.numel() == 0 else t.data_ptr()
@@ -186,17 +238,34 @@ def _launch(wire: int, a, b, keep, base: int, w0, rs, re, cap, min_cov,
     with torch.cuda.device(dev):
         ws[:zeroed].zero_()  # the one memset
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.depth_pipeline_launch(
-            wire, ptr(a), ptr(b), ptr(keep), n, int(base), int(w0),
-            int(rs), int(re), int(cap), int(min_cov), int(max_mean),
-            length, window, tile, ptr(ws), ptr(sums), ptr(packed),
-            ptr(depth), ptr(cls), stream)
+        rc = lib.depth_pipeline_batch_launch(
+            wire, ptr(a), ptr(b), ptr(keep), ptr(offs_d), ptr(bases_d), n,
+            nb, int(base), int(w0), int(rs), int(re), int(cap),
+            int(min_cov), int(max_mean), length, window, tile, ptr(ws),
+            ptr(sums), ptr(packed), ld_packed, ptr(depth), ptr(cls),
+            ld_pos, stream)
     if rc != 0:
         raise KernelFault("depth kernel launch failed: "
                           + lib.depth_kernel_error_string(rc).decode())
     with _lock:
         LAUNCHES["depth"] += 1
-    return sums, packed, cls, depth
+    packed = packed[:, :plen]
+    if dense:
+        depth, cls = depth[:, :length], cls[:, :length]
+    if batched:
+        return sums, packed, cls, depth
+    return (sums[0], packed[0], None if cls is None else cls[0],
+            None if depth is None else depth[0])
+
+
+def bucket_entries(n: int) -> int:
+    """The entry count a batch's workspace is laid out for: the next
+    power of two >= n (at least 1,024), so that batches of similar
+    shards reuse one layout."""
+    b = 1024
+    while b < n:
+        b <<= 1
+    return b
 
 
 def fused_depth(seg_start, seg_end, keep, w0, rs, re, cap, min_cov,
@@ -229,6 +298,36 @@ def fused_depth_wire(deltas, lens, base, w0, rs, re, cap, min_cov,
         return out if dense else (out[0], out[1], None, None)
     return _launch(1, deltas, lens, None, base, w0, rs, re, cap, min_cov,
                    max_mean, length, window, dense)
+
+
+def fused_depth_batch(a, b, offsets, w0, rs, re, cap, min_cov, max_mean,
+                      length: int, window: int, keep=None, bases=None,
+                      dense: bool = False):
+    """B samples over one region in one launch. ``a``, ``b``: the
+    samples' entries back to back, sample s's at ``offsets[s]:offsets[s
+    + 1]`` (``offsets``: B + 1 host ints); the u16 wire (deltas, lens)
+    when ``bases`` (B host ints) is given, else the int32 wire (seg_start,
+    seg_end) with the bool ``keep``. → (sums f32 (B, length//window),
+    packed u8 (B, ceil(length/4)), cls i8 (B, length) | None, depth i32
+    (B, length) | None); row s equals :func:`fused_depth` (or
+    :func:`fused_depth_wire`) on sample s alone."""
+    wire = bases is not None
+    dt = torch.uint16 if wire else torch.int32
+    _check(a, dt, "a")
+    _check(b, dt, "b", a.shape[0])
+    if not wire:
+        _check(keep, torch.bool, "keep", a.shape[0])
+    if wire and len(bases) != len(offsets) - 1:
+        raise ValueError("depth kernel: one base a sample")
+    if a.device.type == "cpu":
+        out = fused_depth_batch_plain(a, b, offsets, w0, rs, re, cap,
+                                      min_cov, max_mean, length, window,
+                                      keep=keep, bases=bases)
+        return out if dense else (out[0], out[1], None, None)
+    return _launch(int(wire), a, b,
+                   None if wire else keep.view(torch.uint8), bases, w0, rs,
+                   re, cap, min_cov, max_mean, length, window, dense,
+                   offsets=offsets)
 
 
 # ---- host tiler of the TPU kernel, for the tests ------------------------

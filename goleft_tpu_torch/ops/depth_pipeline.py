@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .depth_kernel import fused_depth, fused_depth_wire
+from .depth_kernel import fused_depth, fused_depth_batch, fused_depth_wire
 
 
 def shard_depth_pipeline(seg_start, seg_end, keep, w0, region_start,
@@ -61,6 +61,22 @@ def shard_depth_pipeline_packed(deltas, lens, base, w0, region_start,
         deltas, lens, base, w0, region_start, region_end, depth_cap,
         min_cov, max_mean_depth, length, window, dense=True)
     return sums, cls, depth
+
+
+def shard_depth_pipeline_batch_cls_packed(a, b, offsets, w0, region_start,
+                                          region_end, depth_cap, min_cov,
+                                          max_mean_depth, length: int,
+                                          window: int, keep=None,
+                                          bases=None):
+    """B samples' segments over one region in one launch → (window_sums
+    (B, n_win), 2-bit packed classes (B, ceil(length/4))): the serve
+    daemon's coalesced depth pass. The u16 wire when ``bases`` is given,
+    else the int32 wire with ``keep`` (ops/depth_kernel.py::
+    fused_depth_batch)."""
+    sums, packed, _, _ = fused_depth_batch(
+        a, b, offsets, w0, region_start, region_end, depth_cap, min_cov,
+        max_mean_depth, length, window, keep=keep, bases=bases)
+    return sums, packed
 
 
 def unpack_cls_2bit(packed: np.ndarray, length: int) -> np.ndarray:

@@ -146,7 +146,13 @@ def forward_bucket_device(packed, trans: np.ndarray, rescale: bool,
     with TIMER.stage("device-h2d"):
         t = [torch.from_numpy(np.ascontiguousarray(a)).to(device)
              for a in (*packed, trans)]
-    with TIMER.stage("device-kernel"):
+    from ..obs.compiles import TRACKER
+
+    b, r1 = packed[0].shape
+    sig = {"r_pad": r1 - 1, "h_pad": packed[4].shape[1], "b": b,
+           "rescale": bool(rescale), "dtype": np.dtype(trans.dtype).name}
+    with TIMER.stage("device-kernel"), TRACKER.observe(
+            "pairhmm", signature=sig, trigger="pairhmm_forward"):
         contribs, shifts = obs.dispatch(
             "pairhmm", pairhmm_kernel.forward_bucket, *t, rescale=rescale)
         if device.type == "cuda":

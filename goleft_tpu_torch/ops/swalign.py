@@ -457,7 +457,12 @@ def align_bucket(reads_p, rlens, wins_p, wlens,
     device."""
     dev = resolve_device(device)
     sc = np.asarray(scores.astuple(), dtype=np.int32)
-    with TIMER.stage("extend-kernel"):
+    from ..obs.compiles import TRACKER
+
+    sig = {"stage": "extend", "r_pad": reads_p.shape[1] - 1,
+           "w_pad": wins_p.shape[1], "b": reads_p.shape[0]}
+    with TIMER.stage("extend-kernel"), TRACKER.observe(
+            "swalign", signature=sig, trigger="map_extend"):
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
                 for a in (reads_p, rlens, wins_p, wlens, sc)]
         meta, runs = obs.dispatch("swalign", sw_align, *args)

@@ -42,10 +42,18 @@ class Step:
     ``retry=False`` runs ``fn`` outside the retry policy (errors
     propagate raw) but keeps the fault site and the checkpoint: the
     cohort's region steps, whose inner work carries its own per-sample
-    policy."""
+    policy.
+
+    ``dedup=True`` joins the executor's in-flight step table: a
+    concurrent step with the same key shares the running execution
+    instead of starting its own (serve's identical concurrent
+    requests). Only for keys that are full content identity. ``device``
+    times the attempts under a device span (``obs.device_span``)
+    instead of a stage."""
 
     key: tuple
     fn: Callable[[], Any]
+    name: str = ""
     site: str | None = None
     retry: bool = True
     cacheable: bool = False
@@ -55,6 +63,8 @@ class Step:
     commit: Callable[[Any], Sequence[tuple]] | None = None
     span: str | None = None
     attrs: dict = field(default_factory=dict)
+    dedup: bool = False
+    device: bool = False
     quarantine_key: Any = None
     quarantine_name: str = ""
     quarantine_source: str = ""
@@ -81,6 +91,8 @@ class StepOutcome:
     retries_exhausted: BaseException | None = None  # the RetriesExhausted
     attempts: int = 1
     classification: str = ""
+    deduped: bool = False  # the value of a concurrent execution
+    quarantined: bool = False  # the fallback of a quarantined key
 
     def value_or_raise(self):
         if self.error is not None:

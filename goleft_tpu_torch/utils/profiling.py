@@ -82,6 +82,18 @@ class StageTimer:
                     _process_totals[name] += dt
                     _process_calls[name] += 1
 
+    #: the reference's span-ring eviction count; this timer keeps no
+    #: span ring (the tracer holds the intervals), so it stays 0
+    spans_dropped = 0
+
+    def as_dict(self, ndigits: int = 4) -> dict:
+        """{stage: {"seconds", "calls"}}, sorted (serve's /metrics
+        ``stage_seconds``)."""
+        with self._lock:
+            return {name: {"seconds": round(self.totals[name], ndigits),
+                           "calls": self.counts[name]}
+                    for name in sorted(self.totals)}
+
     def report(self) -> str:
         return "\n".join(
             f"{name:<24} {self.totals[name]:8.3f}s "
@@ -92,3 +104,20 @@ class StageTimer:
     def log_report(self) -> None:
         for line in self.report().splitlines():
             log.info("%s", line)
+
+
+def percentiles(values, qs=(50, 95, 99), ndigits: int = 4) -> dict:
+    """{"p50", "p95", "p99", "max", "count"}: nearest-rank percentiles of
+    a sequence of seconds (the latency summary of serve's /metrics and
+    the registry's histograms). Empty input gives {"count": 0}."""
+    import math
+
+    vals = sorted(float(v) for v in values)
+    out: dict = {"count": len(vals)}
+    if not vals:
+        return out
+    for q in qs:
+        rank = max(1, min(len(vals), math.ceil(q / 100.0 * len(vals))))
+        out[f"p{q:g}"] = round(vals[rank - 1], ndigits)
+    out["max"] = round(vals[-1], ndigits)
+    return out

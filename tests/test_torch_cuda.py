@@ -58,6 +58,29 @@ def test_kernel_equals_plain_on_card():
 
 
 @pytest.mark.cuda
+def test_batched_depth_launch_equals_plain_and_singles_on_card():
+    """The batch axis (fused_depth_batch, one launch for B samples): B =
+    1, 3, 8, 16 on both wires at a small shard, bitwise against its
+    plain version and B single launches (chip_smoke.depth_batch_phase);
+    DepthEngine.run_segments_batch on the card equals the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from chip_smoke import depth_batch_phase, depth_batch_samples
+    from goleft_tpu_torch.commands.depth import DepthEngine
+
+    dev = torch.device("cuda")
+    assert depth_batch_phase(dev, shard=300_000, most=30_000,
+                             timed=None)["checked"] == 8
+    w0, samples, _ = depth_batch_samples(np.random.default_rng(5), 5,
+                                         shard=300_000, most=30_000)
+    got, want = (DepthEngine(250, 4, 100, 1, max_span=300_000, device=d)
+                 .run_segments_batch(samples, w0 + 70, w0 + 299_000)
+                 for d in (dev, "cpu"))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(DEPTH_EDGES))
 def test_depth_kernel_edge_cases_on_card(name):
     """chip_smoke.py's DEPTH_EDGES (the widest halo, a gap bridged by

@@ -32,7 +32,7 @@ def _sources():
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
                  "cohort_bench.py", "flags_bench.py", "em_bench.py",
-                 "norm_bench.py", "swalign_bench.py"):
+                 "norm_bench.py", "swalign_bench.py", "serve_bench.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -45,7 +45,7 @@ def test_sources_import_neither_jax_nor_reference():
         seen.append(os.path.relpath(path, PKG))
     assert len(seen) > 10
     for sub in ("obs", "plan", "resilience", "models", "ops", "commands",
-                "io", "parallel", "utils", "cohort", "mapping"):
+                "io", "parallel", "utils", "cohort", "mapping", "serve"):
         assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
@@ -616,6 +616,73 @@ def test_resolve_device_raises_without_cuda(monkeypatch):
         device.resolve_device("mps")
 
 
+@pytest.mark.parametrize("entry", ["app", "cli"])
+def test_serve_needs_a_card(monkeypatch, tmp_path, entry):
+    """``ServeApp()`` and ``python -m goleft_tpu_torch serve`` ask for
+    the card: without one the app raises NoCudaDevice before it starts
+    a thread, and the command exits 1 with one line, never listening."""
+    if entry == "app":
+        from goleft_tpu_torch.serve.server import ServeApp
+
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        import threading
+
+        before = threading.active_count()
+        with pytest.raises(device.NoCudaDevice):
+            ServeApp()
+        assert threading.active_count() == before
+        return
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    env.pop("GOLEFT_TPU_DEBUG", None)
+    r = subprocess.run(
+        [sys.executable, "-m", "goleft_tpu_torch", "serve", "--port", "0"],
+        capture_output=True, text=True, timeout=300, cwd=str(tmp_path),
+        env=env)
+    assert r.returncode == 1 and "no CUDA device" in r.stderr, r.stderr
+    assert "listening" not in r.stdout
+
+
+def test_cpu_serve_run_loads_no_jax(tmp_path):
+    """A port ServeApp asked for the CPU answers a depth request over
+    HTTP in a fresh interpreter; then neither jax nor goleft_tpu is
+    loaded."""
+    script = textwrap.dedent(f"""
+        import sys
+        sys.path.insert(0, {ROOT!r})
+        from goleft_tpu_torch.io.bai import build_bai, write_bai
+        from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+        from goleft_tpu_torch.serve.client import ServeClient
+        from goleft_tpu_torch.serve.server import ServeApp, ServerThread
+        d = {str(tmp_path)!r}
+        with open(d + "/r.fa", "w") as fh:
+            fh.write(">chr1\\n" + "ACGT" * 250 + "\\n")
+        hdr = "@HD\\tVN:1.6\\tSO:coordinate\\n@SQ\\tSN:chr1\\tLN:1000\\n"
+        with open(d + "/t.bam", "wb") as fh:
+            with BamWriter(fh, hdr, ["chr1"], [1000]) as w:
+                for i in range(50):
+                    w.write_record(0, 10 * i, parse_cigar("100M"),
+                                   name=f"r{{i}}")
+        write_bai(build_bai(d + "/t.bam"), d + "/t.bam.bai")
+        app = ServeApp(device="cpu")
+        app.warmup()
+        with ServerThread(app) as url:
+            c = ServeClient(url, timeout_s=60)
+            r = c.depth(d + "/t.bam", reference=d + "/r.fa", window=100)
+            print("HEALTH", c.healthz()["platform"])
+        print("ROW", r["depth_bed"].splitlines()[0])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "goleft_tpu"))
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                       text=True, timeout=120, cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+    assert "HEALTH cpu" in r.stdout and "ROW chr1\t0\t100\t5.5" in r.stdout
+
+
 def test_cli_without_cuda_exits_cleanly(monkeypatch, tmp_path, capsys):
     """The CLI's default run asks for the card: without one it exits 1
     with one line naming the cause, and writes its run manifest all the
@@ -702,6 +769,7 @@ def test_cli_lists_depth():
                                  "cohortdepth", "cohortscan", "covstats",
                                  "dcnv", "depth", "depthwed", "emdepth",
                                  "indexcov", "indexsplit", "map",
-                                 "multidepth", "pairhmm", "samplename"]
+                                 "multidepth", "pairhmm", "samplename",
+                                 "serve"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
