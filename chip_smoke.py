@@ -214,7 +214,24 @@ Run from the root of a checkout, on a machine with one CUDA card:
    → exit 0, and the launches of its manifest; prints per-endpoint
    p50/p99, the burst's requests/s and batch sizes, launches, warmup
    and import seconds;
-20. prints the kernels line, the card's ``nvidia-smi`` name and power
+20. starts ``python -m goleft_tpu_torch fleet --workers 2 --shared-cache
+   DIR --events-journal J``: its supervisor spawns two ``serve`` workers
+   on the card (each /healthz platform gpu; the router process maps no
+   torch); /v1/depth on phase 4's BAM through the router (the oracle's
+   BEDs; /fleet/plan names the worker that answered), phase 19's burst
+   of 8 through it (each body phase 19's; the ring's split and each
+   worker's batched launches), SIGKILL of that BAM's home worker (the
+   supervisor respawns it; ``fleet events`` lists the death and the
+   restart; the same request answered from the shared cache, no
+   launch), ``trace`` across the router and a worker (``--perfetto``
+   JSON), ``warmup --router`` (a valid manifest with the depth family),
+   ``memory --router --json`` (device bytes on both workers),
+   ``profile --router --seconds 2 --collapsed`` (stacks), ``federation
+   --fleet URL`` in front of it (the same bytes; ``trace`` over three
+   levels; no torch mapped), SIGTERM to both → exit 0 with no worker
+   left; prints the up, announce and restart seconds and each
+   request's latency beside phase 19's direct one;
+21. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -4351,10 +4368,14 @@ def serve_phase(root: str, workdir: str, fx: dict) -> dict:
         burst = [None] * len(cnv_bams)
         errs = []
 
+        burst_lat = [None] * len(cnv_bams)
+
         def fire(i):
             try:
+                t1 = time.perf_counter()
                 burst[i] = ServeClient(url, timeout_s=900).depth(
                     cnv_bams[i], reference=cnv_fa, window=WINDOW)
+                burst_lat[i] = time.perf_counter() - t1
             except Exception as e:  # noqa: BLE001 — raised below
                 errs.append(e)
 
@@ -4490,6 +4511,8 @@ def serve_phase(root: str, workdir: str, fx: dict) -> dict:
            for k, v in final["latency_s"].items()}
     out.update(launches=launches, burst_passes=burst_passes,
                burst_batch_sizes=hist, regions=regions,
+               burst_bodies=dict(zip(cnv_bams, burst)),
+               burst_latency_s=dict(zip(cnv_bams, burst_lat)),
                burst_requests_per_s=len(cnv_bams) / burst_s,
                burst_s=burst_s, latency_s=lat,
                stage_seconds=final["stage_seconds"],
@@ -4506,6 +4529,382 @@ def serve_phase(root: str, workdir: str, fx: dict) -> dict:
         + "; stage seconds " + json.dumps(final["stage_seconds"])
         + f"; SIGTERM drained to exit 0 ({time.perf_counter() - t_start:.1f}"
         " s in all)")
+    return out
+
+
+FL_WORKERS = 2  # serve workers the fleet phase's supervisor spawns
+FL_TIMEOUT = 600  # the bound of every wait of the fleet phase
+
+
+def _get_json(url: str, timeout: float = 60.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _post_json(url: str, body: dict, timeout: float = 900.0) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(
+        url, data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def _alive(pid: int) -> bool:
+    """A process that exists and is no zombie."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (FileNotFoundError, ProcessLookupError, IndexError):
+        return False
+
+
+def _torch_mapped(pid: int) -> list[str]:
+    """The files of torch's that a process has mapped (none in a process
+    that never imported it)."""
+    with open(f"/proc/{pid}/maps") as fh:
+        return sorted({line.split()[-1] for line in fh
+                       if "libtorch" in line or "/torch/" in line})
+
+
+def _start_listening(argv: list[str], root: str, env: dict, err: str):
+    """A ``python -m goleft_tpu_torch`` process whose stdout prints one
+    ``listening on URL`` line once it serves → (process, URL, seconds
+    to that line). Fails, with the stderr's tail, past FL_TIMEOUT."""
+    import queue
+    import threading
+
+    errf = open(err, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "goleft_tpu_torch",
+                             *argv], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=errf, text=True)
+    errf.close()
+    lines: queue.Queue = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(x) for x in proc.stdout],
+                     daemon=True).start()
+    t_end = time.monotonic() + FL_TIMEOUT
+    while True:
+        try:
+            line = lines.get(timeout=max(0.1, t_end - time.monotonic()))
+        except queue.Empty:
+            proc.kill()
+            raise AssertionError(f"{argv[0]} printed no listening line:\n"
+                                 + open(err).read()[-4000:])
+        m = re.search(r"listening on (http://\S+)", line)
+        if m:
+            return proc, m.group(1), time.perf_counter() - t0
+
+
+def _wait_for(what: str, pred, timeout: float = FL_TIMEOUT):
+    t_end = time.monotonic() + timeout
+    while True:
+        got = pred()
+        if got:
+            return got
+        assert time.monotonic() < t_end, f"timed out waiting for {what}"
+        time.sleep(0.2)
+
+
+def fleet_phase(root: str, workdir: str, fx: dict, sv: dict) -> dict:
+    """Phase 20: ``python -m goleft_tpu_torch fleet --workers 2
+    --shared-cache DIR --events-journal J`` in a fresh process (its
+    supervisor spawns two ``serve`` workers on the card; the router
+    itself never maps torch), then /v1/depth through the router on phase
+    4's BAM (the oracle's BEDs; /fleet/plan names the worker that
+    answered), phase 19's burst through it (each body the one phase 19
+    got), a SIGKILLed home worker respawned and the same request
+    answered from the shared cache with no launch, ``trace`` across the
+    router and a worker (``--perfetto`` JSON), the router modes of
+    ``warmup``, ``memory`` and ``profile``, a federation in front of
+    the fleet (the same bytes; ``trace`` over three levels), SIGTERM to
+    both → exit 0 with no worker left."""
+    import signal
+    import threading
+
+    from goleft_tpu_torch.obs.compiles import validate_warmup_manifest
+    from goleft_tpu_torch.obs.events import read_events
+    from goleft_tpu_torch.serve.client import ServeClient
+
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    cache = os.path.join(workdir, "fl_cache")
+    journal = os.path.join(workdir, "fl_events.jsonl")
+    fl_err = os.path.join(workdir, "fleet.stderr")
+    fed_err = os.path.join(workdir, "federation.stderr")
+    t_wall0 = time.time()
+    fleet, url, up_s = _start_listening(
+        ["fleet", "--port", "0", "--workers", str(FL_WORKERS),
+         "--shared-cache", cache, "--events-journal", journal,
+         "--poll-interval-s", "0.5", "--supervise-interval-s", "0.5",
+         "--worker-args", f"--profile-hz 100 --flight-dir {workdir}"],
+        root, env, fl_err)
+    fed = None
+    out = {"router_up_s": up_s, "latency_s": {}}
+    try:
+        spawns = read_events(journal, since=t_wall0, type="spawn")
+        assert len(spawns) == FL_WORKERS, spawns
+        pids = {e["worker"]: e["pid"] for e in spawns}
+        # spawn to announce, a worker at a time (the supervisor spawns
+        # them one after another): the torch import and the warmup
+        t_prev = t_wall0
+        out["worker_announce_s"] = []
+        for e in spawns:
+            out["worker_announce_s"].append(e["t"] - t_prev)
+            t_prev = e["t"]
+        import torch
+
+        for w in pids:
+            h = _get_json(w + "/healthz")
+            assert h["platform"] == "gpu" and h.get("cache") == "shared" \
+                and h["device_kind"] == torch.cuda.get_device_name(0), h
+        mapped = _torch_mapped(fleet.pid)
+        assert not mapped, f"the fleet router mapped torch: {mapped[:5]}"
+        assert all(_alive(p) for p in pids.values())
+
+        def passes() -> dict:
+            return {w: _get_json(w + "/metrics")["counters"].get(
+                "device_passes_total", 0) for w in pids}
+
+        bam, fa, want_d, want_c = fx["depth"]
+        depth_req = dict(reference=fa, window=WINDOW,
+                         maxmeandepth=MAX_MEAN)
+        home = _post_json(url + "/fleet/plan",
+                          {"kind": "depth", "bam": bam, **depth_req}
+                          )["candidates"][0]
+        p0 = passes()
+        t0 = time.perf_counter()
+        r = ServeClient(url, timeout_s=900).depth(bam, **depth_req)
+        out["latency_s"]["depth"] = time.perf_counter() - t0
+        p1 = passes()
+        _same_bytes("fleet /v1/depth depth.bed (phase 4's oracle)",
+                    r["depth_bed"], want_d)
+        _same_bytes("fleet /v1/depth callable.bed (phase 4's oracle)",
+                    r["callable_bed"], want_c)
+        moved = [w for w in pids if p1[w] != p0[w]]
+        assert moved == [home], (moved, home)
+        launches = p1[home] - p0[home]
+        assert launches == -(-E2E_LEN // SHARD), launches
+
+        bodies = sv["burst_bodies"]
+        cnv_bams, cnv_fa = list(bodies), fx["cnv_fa"]
+        homes = {b: _post_json(url + "/fleet/plan", {
+            "kind": "depth", "bam": b, "reference": cnv_fa,
+            "window": WINDOW})["candidates"][0] for b in cnv_bams}
+        m0 = {w: _get_json(w + "/metrics") for w in pids}
+        burst, lat, errs = {}, {}, []
+        go = threading.Event()
+
+        def fire(b):
+            try:
+                go.wait(timeout=FL_TIMEOUT)
+                t1 = time.perf_counter()
+                burst[b] = ServeClient(url, timeout_s=900).depth(
+                    b, reference=cnv_fa, window=WINDOW)
+                lat[b] = time.perf_counter() - t1
+            except Exception as e:  # noqa: BLE001 — raised below
+                errs.append(e)
+
+        ts = [threading.Thread(target=fire, args=(b,)) for b in cnv_bams]
+        for t in ts:
+            t.start()
+        t0 = time.perf_counter()
+        go.set()
+        for t in ts:
+            t.join(timeout=FL_TIMEOUT)
+        burst_s = time.perf_counter() - t0
+        if errs:
+            raise errs[0]
+        for b in cnv_bams:
+            assert json.dumps(burst[b], sort_keys=True) \
+                == json.dumps(bodies[b], sort_keys=True), \
+                f"fleet burst body of {os.path.basename(b)} differs " \
+                "from phase 19's"
+        m1 = {w: _get_json(w + "/metrics") for w in pids}
+        split = {w: sum(1 for h in homes.values() if h == w) for w in pids}
+        per_worker = {}
+        for w in pids:
+            c0, c1 = m0[w]["counters"], m1[w]["counters"]
+            n_req = c1.get("requests_total.depth", 0) \
+                - c0.get("requests_total.depth", 0)
+            assert n_req == split[w], (w, n_req, split)
+            per_worker[w] = {
+                "requests": n_req,
+                "launches": c1.get("device_passes_total", 0)
+                - c0.get("device_passes_total", 0),
+                "batch_sizes": {k: v - m0[w]["batch_size_hist"].get(k, 0)
+                                for k, v in m1[w]["batch_size_hist"]
+                                .items()
+                                if v - m0[w]["batch_size_hist"].get(k, 0)}}
+        burst_launches = sum(v["launches"] for v in per_worker.values())
+        launches += burst_launches
+        out["latency_s"]["burst"] = lat
+        log(f"fleet: a burst of {len(cnv_bams)} /v1/depth requests through "
+            f"the router split {sorted(split.values())} over the ring, "
+            f"{burst_launches} batched launches "
+            + json.dumps({w.rsplit(':', 1)[-1]: v
+                          for w, v in per_worker.items()})
+            + f", {len(cnv_bams) / burst_s:.2f} requests/s "
+            f"({burst_s:.3f} s); every body phase 19's")
+
+        # kill the home worker of phase 4's BAM; the supervisor respawns
+        victim = pids[home]
+        t_kill = time.time()
+        os.kill(victim, signal.SIGKILL)
+        restart = _wait_for("the supervisor's restart", lambda: [
+            e for e in read_events(journal, since=t_kill)
+            if e["type"] == "restart"])[0]
+        deaths = [e for e in read_events(journal, since=t_kill)
+                  if e["type"] == "death"]
+        assert deaths and deaths[0]["pid"] == victim, deaths
+        out["restart_s"] = restart["t"] - deaths[0]["t"]
+        _wait_for("two healthy workers", lambda: _get_json(
+            url + "/healthz").get("healthy") == FL_WORKERS)
+        new = restart["worker"]
+        pids.pop(home)
+        pids[new] = restart["pid"]
+        assert _get_json(new + "/healthz")["platform"] == "gpu"
+        ev = subprocess.run(
+            [sys.executable, "-m", "goleft_tpu_torch", "fleet", "events",
+             "--journal", journal, "--json"], cwd=root, env=env,
+            capture_output=True, text=True, timeout=120)
+        assert ev.returncode == 0, ev.stderr[-2000:]
+        evdoc = json.loads(ev.stdout)
+        types = [e["type"] for e in evdoc["events"]]
+        assert evdoc["schema"] == "goleft-tpu.fleet-events/1"
+        assert "death" in types and "restart" in types, types
+        p0 = passes()
+        client = ServeClient(url, timeout_s=900, trace=True)
+        t0 = time.perf_counter()
+        r = client.depth(bam, **depth_req)
+        out["latency_s"]["depth_after_restart"] = time.perf_counter() - t0
+        assert r.get("cached") is True, sorted(r)
+        assert r["depth_bed"] == want_d and r["callable_bed"] == want_c
+        assert passes() == p0, "the replayed request launched a kernel"
+        log(f"fleet: SIGKILLed worker pid {victim} (home of phase 4's "
+            f"BAM), restarted in {out['restart_s']:.2f} s at {new}; the "
+            "same request answered from the shared cache, no launch on "
+            "any worker")
+
+        perf = os.path.join(workdir, "fl_trace.json")
+        tr = subprocess.run(
+            [sys.executable, "-m", "goleft_tpu_torch", "trace",
+             client.last_trace_id, "--router", url, "--perfetto", perf],
+            cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        assert tr.returncode == 0, tr.stderr[-2000:]
+        assert re.search(r"2 process\(es\)", tr.stdout), tr.stdout
+        assert "fleet.forward.depth" in tr.stdout \
+            and "request.depth" in tr.stdout, tr.stdout
+        with open(perf) as fh:
+            assert json.load(fh)["traceEvents"]
+
+        def cli(*argv):
+            r = subprocess.run([sys.executable, "-m", "goleft_tpu_torch",
+                                *argv], cwd=root, env=env,
+                               capture_output=True, text=True, timeout=300)
+            assert r.returncode == 0, (argv, r.stderr[-2000:])
+            return r.stdout
+
+        wpath = os.path.join(workdir, "fl_warmup.json")
+        cli("warmup", "export", "--router", "--url", url, "--out", wpath)
+        with open(wpath) as fh:
+            wdoc = validate_warmup_manifest(json.load(fh))
+        assert any(s["family"] == "depth" for s in wdoc["signatures"])
+        mem = json.loads(cli("memory", "--router", url, "--json"))
+        assert mem["workers"] == FL_WORKERS, mem
+        reserved = mem["gauges"]["memory.device_reserved_bytes"]
+        assert reserved["min"] > 0, reserved
+        prof = cli("profile", "--router", url, "--seconds", "2",
+                   "--collapsed", "-")
+        assert prof.strip(), "profile --router printed no stacks"
+        out["profile_stacks"] = len(prof.splitlines())
+
+        fed, fed_url, fed_up = _start_listening(
+            ["federation", "--port", "0", "--fleet", url,
+             "--poll-interval-s", "0.5"], root, env, fed_err)
+        out["federation_up_s"] = fed_up
+        mapped = _torch_mapped(fed.pid)
+        assert not mapped, f"the federation mapped torch: {mapped[:5]}"
+        fclient = ServeClient(fed_url, timeout_s=900, trace=True)
+        t0 = time.perf_counter()
+        r = fclient.depth(bam, **depth_req)
+        out["latency_s"]["depth_via_federation"] = \
+            time.perf_counter() - t0
+        assert r["depth_bed"] == want_d and r["callable_bed"] == want_c
+        tr = subprocess.run(
+            [sys.executable, "-m", "goleft_tpu_torch", "trace",
+             fclient.last_trace_id, "--router", fed_url, "--json"],
+            cwd=root, env=env, capture_output=True, text=True, timeout=120)
+        assert tr.returncode == 0, tr.stderr[-2000:]
+        doc = json.loads(tr.stdout)
+        names = []
+
+        def walk(node, depth=0):
+            names.append((depth, node["name"]))
+            for c in node.get("children", ()):
+                walk(c, depth + 1)
+
+        walk(doc["tree"])
+        order = [n for _, n in names]
+        assert len(doc["processes"]) >= 3, doc["processes"]
+        for level in ("federation.request.depth", "fleet.request.depth",
+                      "request.depth"):
+            assert level in order, order
+        assert order.index("federation.request.depth") \
+            < order.index("fleet.request.depth") \
+            < order.index("request.depth"), order
+        out["federation_trace_levels"] = len(doc["processes"])
+    except BaseException:
+        # stop what the phase started: a drain first (the fleet stops its
+        # workers), then SIGKILL to anything still alive, workers included
+        for p in (fed, fleet):
+            if p is not None and p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+                    p.wait(timeout=60)
+        for e in read_events(journal, since=t_wall0):
+            if e.get("pid") and _alive(e["pid"]):
+                try:
+                    os.kill(e["pid"], signal.SIGKILL)
+                except ProcessLookupError:
+                    pass
+        log("fleet stderr:\n" + open(fl_err).read()[-4000:])
+        raise
+    fed.send_signal(signal.SIGTERM)
+    assert fed.wait(timeout=120) == 0, open(fed_err).read()[-4000:]
+    fleet.send_signal(signal.SIGTERM)
+    rc = fleet.wait(timeout=300)
+    assert rc == 0, (rc, open(fl_err).read()[-4000:])
+    every = {e["pid"] for e in read_events(journal, since=t_wall0)
+             if e.get("pid")}
+    left = [p for p in every if _alive(p)]
+    assert not left, f"workers outlived the fleet: {left}"
+    direct = sv["burst_latency_s"]
+    out.update(launches=launches, workers=FL_WORKERS,
+               burst_split=sorted(split.values()),
+               burst_per_worker=per_worker,
+               latency_direct_s={
+                   "depth": sv["latency_client_s"]["depth"][0],
+                   "burst": direct})
+    log(f"fleet: router up in {up_s:.2f} s, workers announced in "
+        + ", ".join(f"{s:.2f}" for s in out["worker_announce_s"])
+        + f" s, restart {out['restart_s']:.2f} s, federation up in "
+        f"{fed_up:.2f} s; depth through the router "
+        f"{out['latency_s']['depth']:.3f} s (direct, phase 19: "
+        f"{out['latency_direct_s']['depth']:.3f} s), after the restart "
+        f"{out['latency_s']['depth_after_restart']:.3f} s (cached), via "
+        f"the federation {out['latency_s']['depth_via_federation']:.3f} "
+        "s; burst through the router / direct (s): "
+        + ", ".join(f"{os.path.basename(b)} {lat[b]:.3f}/{direct[b]:.3f}"
+                    for b in cnv_bams)
+        + f"; {launches} depth launches; federation and fleet exited 0, "
+        "no worker left")
     return out
 
 
@@ -4676,6 +5075,10 @@ def main(argv=None) -> int:
             "ic_out": ic["out_c"], "map": mres["fixture"]})
         depth["serve_launches"] = sv["launches"]["depth"]
         depth["serve_burst_launches"] = sv["burst_passes"]
+        results["fleet"] = fl = fleet_phase(root, workdir, {
+            "depth": depth_fixture, "cnv_fa": cnv["fa"]}, sv)
+        sv.pop("burst_bodies")
+        depth["fleet_launches"] = fl["launches"]
         swk.update(status="pass", launches=mres["launches"]["swalign"],
                    max_abs_err=sres["max_abs_err"], ms=sres["ms"],
                    plain_ms=sres["plain_ms"], bound_ms=sres["bound_ms"],

@@ -41,6 +41,7 @@ import sys
 import time
 
 from . import __version__
+from .errors import NoCudaDevice
 
 
 # seconds spent importing the device module (torch comes with it) and
@@ -60,41 +61,62 @@ def _lazy(module: str):
     return runner
 
 
+# name -> (help, runner, uses_device), the reference's table: only the
+# device commands import torch (``.device``) before they run; the host
+# tools and the fleet tier (router, supervisor, federation and the HTTP
+# clients of the observability surfaces) never load it
 PROGS = {
     "anonymize": ("make shareable header-only bam+bai fixtures",
-                  _lazy(".commands.anonymize")),
+                  _lazy(".commands.anonymize"), False),
     "cnv": ("CNV calls straight from BAMs: cohort depth matrix + EM copy "
-            "number on the CUDA card", _lazy(".commands.cnv")),
+            "number on the CUDA card", _lazy(".commands.cnv"), True),
     "cohortdepth": ("windowed depth matrix for a cohort of BAM/CRAM files "
-                    "on the CUDA card", _lazy(".commands.cohortdepth")),
+                    "on the CUDA card", _lazy(".commands.cohortdepth"),
+                    True),
     "cohortscan": ("streaming, incremental indexcov for biobank-scale "
-                   "cohorts on the CUDA card", _lazy(".commands.cohortscan")),
+                   "cohorts on the CUDA card", _lazy(".commands.cohortscan"),
+                   True),
     "cnveval": ("evaluate CNV calls against a truth set",
-                _lazy(".commands.cnveval_cmd")),
+                _lazy(".commands.cnveval_cmd"), False),
     "covstats": ("coverage and insert-size statistics by sampling",
-                 _lazy(".commands.covstats")),
+                 _lazy(".commands.covstats"), False),
     "dcnv": ("GC-debias + normalize a depth matrix",
-             _lazy(".commands.dcnv_cmd")),
+             _lazy(".commands.dcnv_cmd"), True),
     "depth": ("windowed depth + callable regions on the CUDA card",
-              _lazy(".commands.depth")),
+              _lazy(".commands.depth"), True),
     "depthwed": ("matricize depth bed files to n-sites * n-samples",
-                 _lazy(".commands.depthwed")),
+                 _lazy(".commands.depthwed"), False),
     "emdepth": ("EM copy-number calls from a depth matrix on the CUDA card",
-                _lazy(".commands.emdepth_cmd")),
+                _lazy(".commands.emdepth_cmd"), True),
+    "federation": ("multi-fleet failover tier with tenant-scoped "
+                   "overload isolation", _lazy(".commands.federation"),
+                   False),
+    "fleet": ("multi-worker serve fleet behind a file-affinity router",
+              _lazy(".commands.fleet"), False),
     "indexcov": ("cohort coverage QC from BAM/CRAM indexes only on the "
-                 "CUDA card", _lazy(".commands.indexcov")),
+                 "CUDA card", _lazy(".commands.indexcov"), True),
     "indexsplit": ("create regions of even data size across bams/crams",
-                   _lazy(".commands.indexsplit")),
+                   _lazy(".commands.indexsplit"), False),
     "map": ("map FASTQ reads: minimizer seeding + banded "
-            "Smith-Waterman on the CUDA card", _lazy(".commands.map_cmd")),
+            "Smith-Waterman on the CUDA card", _lazy(".commands.map_cmd"),
+            True),
+    "memory": ("render the host/device memory observatory of a "
+               "worker or fleet", _lazy(".commands.memory_cmd"), False),
     "multidepth": ("joint depth over many bams with min-coverage blocks "
-                   "on the CUDA card", _lazy(".commands.multidepth")),
+                   "on the CUDA card", _lazy(".commands.multidepth"), True),
     "pairhmm": ("pair-HMM genotype likelihoods over candidate windows "
-                "on the CUDA card", _lazy(".commands.pairhmm_cmd")),
+                "on the CUDA card", _lazy(".commands.pairhmm_cmd"), True),
+    "profile": ("collect + render a fleet-wide sampling CPU profile",
+                _lazy(".commands.profile_cmd"), False),
     "samplename": ("report samples in a bam file",
-                   _lazy(".commands.samplename")),
+                   _lazy(".commands.samplename"), False),
     "serve": ("long-running coverage service with request micro-batching "
-              "on the CUDA card", _lazy(".commands.serve")),
+              "on the CUDA card", _lazy(".commands.serve"), True),
+    "trace": ("fetch + pretty-print a stitched cross-process fleet "
+              "trace", _lazy(".commands.trace_cmd"), False),
+    "warmup": ("export the compile observatory's warmup manifest "
+               "from a live worker or router", _lazy(".commands.warmup"),
+               False),
 }
 
 _VALUE_FLAGS = {"--trace-out": "trace_out",
@@ -165,10 +187,11 @@ def usage() -> str:
 def _run_command(prog: str, argv: list[str]) -> int:
     """Dispatch with the reference's error contract: 0 / 1 on bad input
     or a missing card (one clean line) / 141 on a closed stdout."""
-    t0 = time.perf_counter()
-    from .device import NoCudaDevice  # the first import of torch
+    if PROGS[prog][2]:
+        t0 = time.perf_counter()
+        from . import device  # noqa: F401 (the first import of torch)
 
-    IMPORT_SECONDS[".device"] = time.perf_counter() - t0
+        IMPORT_SECONDS[".device"] = time.perf_counter() - t0
     sys.argv = [f"goleft-tpu-torch {prog}"] + argv
     try:
         ret = PROGS[prog][1](argv)
@@ -192,25 +215,34 @@ def _run_command(prog: str, argv: list[str]) -> int:
     return int(ret or 0)
 
 
-def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
-                    seconds: float, trace_id: str | None) -> None:
-    from .io import native
-    from .obs.manifest import write_manifest
+def _kernel_launches() -> dict:
     from .ops import (depth_kernel, norm_kernel, pairhmm_kernel, rans_kernel,
                       swalign_kernel)
 
+    return {**depth_kernel.LAUNCHES, **pairhmm_kernel.LAUNCHES,
+            **rans_kernel.LAUNCHES, **norm_kernel.LAUNCHES,
+            **swalign_kernel.LAUNCHES}
+
+
+def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
+                    seconds: float, trace_id: str | None) -> None:
+    """A device command's manifest carries the card's provenance and the
+    kernels' launch counts; a host command launches no kernel and its
+    manifest names the host only (neither loads torch)."""
+    from .io import native
+    from .obs.manifest import HOST_BACKEND, write_manifest
+
+    uses_device = PROGS[prog][2]
     try:
         write_manifest(
             path, argv=[f"goleft-tpu-torch {prog}"] + argv,
             trace_id=trace_id,
             spans={f"run.{prog}": {"seconds": seconds, "calls": 1}},
+            backend=None if uses_device else HOST_BACKEND,
             extra={"command": prog, "exit_code": rc,
                    "import_seconds": sum(IMPORT_SECONDS.values()),
-                   "kernel_launches": {**depth_kernel.LAUNCHES,
-                                       **pairhmm_kernel.LAUNCHES,
-                                       **rans_kernel.LAUNCHES,
-                                       **norm_kernel.LAUNCHES,
-                                       **swalign_kernel.LAUNCHES},
+                   "kernel_launches": (_kernel_launches() if uses_device
+                                       else {}),
                    "native_io": native.get_lib() is not None})
     except OSError as e:
         print(f"goleft-tpu-torch: could not write --metrics-out: {e}",

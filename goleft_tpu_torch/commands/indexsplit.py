@@ -1,7 +1,7 @@
 """indexsplit: regions of even cross-cohort data volume from indexes.
 
 A copy of the JAX package's commands/indexsplit.py over the port's
-SampleIndex (commands/indexcov.py); no device stage, so it needs no
+SampleIndex (io/sampleindex.py); no device stage, so it needs no
 card.
 
 Reference: indexsplit/indexsplit.go. Per-16KB tile sizes are summed across
@@ -22,7 +22,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..utils.regions import read_tree, overlaps
-from .indexcov import SampleIndex, references
+from ..io.sampleindex import SampleIndex, references
 
 TILE = 16384
 SCALAR = 1e9

@@ -12,16 +12,7 @@ import subprocess
 
 import torch
 
-
-class NoCudaDevice(RuntimeError):
-    """A CUDA run was asked for (explicitly or by default) and no CUDA
-    device is visible."""
-
-
-class KernelFault(RuntimeError):
-    """A kernel did not build, launch or finish on the card: a fault of
-    the card or its toolchain, not of the data. The retry policy lets it
-    through unretried and unquarantined, so the run fails with it."""
+from .errors import KernelFault, NoCudaDevice  # noqa: F401 (re-exported)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -91,6 +91,13 @@ def _timeout_s() -> float:
     return _env_float("GOLEFT_TPU_FETCH_TIMEOUT_S", 30.0)
 
 
+def _routing_timeout_s() -> float:
+    """Budget of an identity probe made on a request-routing path (the
+    fleet router's affinity key): a slow object store must not stall
+    routing for the full fetch retry budget."""
+    return _env_float("GOLEFT_TPU_FETCH_ROUTING_TIMEOUT_S", 1.0)
+
+
 #: blocks a ByteSource keeps (LRU beyond this)
 CACHE_BLOCKS = 64
 #: identities kept in the TTL cache (LRU beyond this)
@@ -158,12 +165,19 @@ class _ConnectionPool:
         self._lock = threading.Lock()
         self._idle: dict = collections.defaultdict(list)
 
-    def acquire(self, scheme: str, host: str, port: int):
-        t = _timeout_s()
+    def acquire(self, scheme: str, host: str, port: int,
+                timeout_s: float | None = None):
+        t = timeout_s if timeout_s is not None else _timeout_s()
         with self._lock:
             idle = self._idle.get((scheme, host, port))
             if idle:
-                return idle.pop()
+                conn = idle.pop()
+                # a pooled connection may carry the previous caller's
+                # deadline: set this caller's on every acquire
+                conn.timeout = t
+                if getattr(conn, "sock", None) is not None:
+                    conn.sock.settimeout(t)
+                return conn
         if scheme == "https":
             return http.client.HTTPSConnection(host, port, timeout=t)
         return http.client.HTTPConnection(host, port, timeout=t)
@@ -188,6 +202,12 @@ _POOL = _ConnectionPool()
 #: the fetch tier's executor: every network round trip is one plan Step
 #: at the ``fetch`` site
 _EXECUTOR = Executor(policy=FETCH_POLICY)
+
+#: the routing probe's executor: one attempt under a tight deadline
+#: (routing falls back to the raw URL when the probe fails)
+_PROBE_EXECUTOR = Executor(policy=RetryPolicy(
+    retries=0, base_delay_s=0.01, max_delay_s=0.1,
+    deadline_s=_routing_timeout_s()))
 
 _MAX_REDIRECTS = 4
 
@@ -220,7 +240,8 @@ def _status_error(url: str, status: int, reason: str) -> Exception:
     return OSError(f"HTTP {status} {reason} for {url}")
 
 
-def _http_roundtrip(url: str, method: str, headers: dict):
+def _http_roundtrip(url: str, method: str, headers: dict,
+                    timeout_s: float | None = None):
     """One HTTP request/response against the resolved URL, following
     a bounded number of redirects. Returns ``(status, headers, body)``
     for terminal 2xx; raises the mapped error otherwise. Never
@@ -235,7 +256,7 @@ def _http_roundtrip(url: str, method: str, headers: dict):
         path = parts.path or "/"
         if parts.query:
             path += "?" + parts.query
-        conn = _POOL.acquire(scheme, host, port)
+        conn = _POOL.acquire(scheme, host, port, timeout_s=timeout_s)
         try:
             conn.request(method, path, headers=headers)
             resp = conn.getresponse()
@@ -276,22 +297,27 @@ _identity_lock = threading.Lock()
 #: url -> (monotonic, (length, token)); insertion-ordered (oldest
 #: first), bounded by ``IDENTITY_CAP``
 _identity_cache: collections.OrderedDict = collections.OrderedDict()
+#: url -> monotonic of the last failed routing probe: a dead endpoint
+#: costs routing one short probe per TTL, not one per request
+_identity_neg: collections.OrderedDict = collections.OrderedDict()
 
 
-def _cache_insert(url: str, value) -> None:
+def _cache_insert(cache: collections.OrderedDict, url: str,
+                  value) -> None:
     """Insert under ``_identity_lock``: newest at the back, expired
     entries swept from the front (insertion order is staleness order),
     LRU beyond the cap."""
     now = time.monotonic()
-    _identity_cache[url] = value
-    _identity_cache.move_to_end(url)
-    while _identity_cache:
-        ts = next(iter(_identity_cache.values()))[0]
+    cache[url] = value
+    cache.move_to_end(url)
+    while cache:
+        ts = next(iter(cache.values()))
+        ts = ts[0] if isinstance(ts, tuple) else ts
         if now - ts <= IDENTITY_TTL_S:
             break
-        _identity_cache.popitem(last=False)
-    while len(_identity_cache) > IDENTITY_CAP:
-        _identity_cache.popitem(last=False)
+        cache.popitem(last=False)
+    while len(cache) > IDENTITY_CAP:
+        cache.popitem(last=False)
 
 
 def invalidate_identity(url: str | None = None) -> None:
@@ -300,24 +326,41 @@ def invalidate_identity(url: str | None = None) -> None:
     with _identity_lock:
         if url is None:
             _identity_cache.clear()
+            _identity_neg.clear()
         else:
             _identity_cache.pop(url, None)
+            _identity_neg.pop(url, None)
 
 
-def _probe_identity(url: str) -> tuple:
+def _probe_identity(url: str, routing: bool = False) -> tuple:
     """HEAD the object: ``(length, token)``, cached for the identity
     TTL. Raises the mapped error (404 → FileNotFoundError); callers that
-    want existence semantics catch it."""
+    want existence semantics catch it.
+
+    ``routing=True`` is the request-routing variant: one attempt under
+    ``_routing_timeout_s()`` instead of the fetch retry budget, and a
+    failure is negative-cached for the identity TTL, so an unreachable
+    store stalls at most one request per TTL."""
     now = time.monotonic()
     with _identity_lock:
         hit = _identity_cache.get(url)
         if hit is not None and now - hit[0] <= IDENTITY_TTL_S:
             return hit[1]
+        if routing:
+            neg = _identity_neg.get(url)
+            if neg is not None and now - neg <= IDENTITY_TTL_S:
+                get_registry().counter(
+                    "fetch.identity_neg_hits_total").inc()
+                raise OSError(
+                    f"identity probe for {url} failed recently "
+                    "(negative-cached)")
     resolved = resolve_url(url)
 
     def head():
         get_registry().counter("fetch.identity_probes_total").inc()
-        status, headers, _body = _http_roundtrip(resolved, "HEAD", {})
+        status, headers, _body = _http_roundtrip(
+            resolved, "HEAD", {},
+            timeout_s=_routing_timeout_s() if routing else None)
         try:
             length = int(headers.get("Content-Length", "-1"))
         except ValueError:
@@ -328,11 +371,19 @@ def _probe_identity(url: str) -> tuple:
                 f"(status {status})")
         return (length, _identity_token(headers))
 
-    ident = _EXECUTOR.run(Step(
-        key=("fetch", "identity", url), fn=head, site="fetch",
-        span="fetch.range", attrs={"url": url, "what": "identity"}))
+    executor = _PROBE_EXECUTOR if routing else _EXECUTOR
+    try:
+        ident = executor.run(Step(
+            key=("fetch", "identity", url), fn=head, site="fetch",
+            span="fetch.range", attrs={"url": url, "what": "identity"}))
+    except Exception:
+        if routing:
+            with _identity_lock:
+                _cache_insert(_identity_neg, url, time.monotonic())
+        raise
     with _identity_lock:
-        _cache_insert(url, (time.monotonic(), ident))
+        _cache_insert(_identity_cache, url, (time.monotonic(), ident))
+        _identity_neg.pop(url, None)
     return ident
 
 
@@ -341,6 +392,16 @@ def remote_file_key(url: str) -> tuple:
     ``(abspath, size, mtime_ns)``, the same shape and the same property
     (an object rewrite changes the key)."""
     length, token = _probe_identity(url)
+    return (url, length, token)
+
+
+def routing_file_key(url: str) -> tuple:
+    """:func:`remote_file_key` for the fleet router's affinity key: the
+    same tuple on success, but one probe attempt under
+    ``GOLEFT_TPU_FETCH_ROUTING_TIMEOUT_S`` and failures negative-cached
+    for the identity TTL, so a slow or dead store cannot stall request
+    routing for the fetch retry budget on every request."""
+    length, token = _probe_identity(url, routing=True)
     return (url, length, token)
 
 

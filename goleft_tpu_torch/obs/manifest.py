@@ -76,16 +76,29 @@ def env_provenance() -> dict:
     return rec
 
 
+#: the backend block of a host command's manifest (the host tools and
+#: the fleet tier run no kernel and never load torch)
+HOST_BACKEND = {"platform": "cpu", "device_kind": "cpu", "device_count": 1,
+                "device": "none (host command)"}
+
+
 def build_manifest(argv: list[str] | None = None,
                    spans: dict | None = None, device=None,
                    extra: dict | None = None,
-                   trace_id: str | None = None) -> dict:
+                   trace_id: str | None = None,
+                   backend: dict | None = None) -> dict:
     """The manifest of this process's run. ``spans`` are added to the
     stage totals (the caller's root span); ``device`` is the run's
-    device as ``resolve_device`` takes it (None: the card)."""
-    from ..device import backend_provenance
+    device as ``resolve_device`` takes it (None: the card); ``backend``
+    replaces the card's provenance (:data:`HOST_BACKEND` for a host
+    command, which then loads no torch)."""
     from ..utils.profiling import process_spans
     from .metrics import get_registry
+
+    if backend is None:
+        from ..device import backend_provenance
+
+        backend = backend_provenance(device)
 
     doc = {
         "schema": SCHEMA,
@@ -93,7 +106,7 @@ def build_manifest(argv: list[str] | None = None,
                 .isoformat(timespec="seconds"),
         "argv": list(argv) if argv is not None else None,
         "env": env_provenance(),
-        "backend": backend_provenance(device),
+        "backend": dict(backend),
         "spans": dict(sorted({**process_spans(), **(spans or {})}
                              .items())),
         "metrics": get_registry().snapshot(),

@@ -1,7 +1,9 @@
 """Memory plane of the port: host memory, the pressure band, device
 bytes per dispatch family, and the chunk auto-sizing that ``cohortscan
 --chunk-samples 0`` consumes. The counterpart of the JAX package's
-obs/memplane.py without its fleet roll-up.
+obs/memplane.py. The router merges its workers' bodies
+(:func:`merge_memory`) and the federation merges the routers'
+(:func:`merge_merged_memory`), as the reference's do.
 
 - Host memory is read from procfs (``/proc/self/statm`` for RSS,
   ``status`` ``VmHWM`` for the peak, ``smaps_rollup`` ``Pss``).
@@ -205,7 +207,10 @@ class MemoryTracker:
 
     def device_doc(self) -> dict:
         """{total_bytes (allocated now), reserved_bytes, peak_bytes,
-        by_device, by_family} and the family gauges."""
+        by_device, by_family} and the family gauges. ``by_family`` is
+        the reference's wire: family → the bytes the family's last
+        dispatch left allocated (a router's :func:`merge_memory` sums
+        it)."""
         cuda = self._cuda()
         total = reserved = peak = 0
         by_device: dict[str, int] = {}
@@ -217,13 +222,12 @@ class MemoryTracker:
                 reserved += int(cuda.memory_reserved(i))
                 peak = max(peak, int(cuda.max_memory_allocated(i)))
         with self._lock:
-            by_family = {f: dict(r) for f, r in
+            by_family = {f: r["retained_bytes"] for f, r in
                          sorted(self._families.items())}
         reg = self._reg()
         reg.gauge("memory.device_live_bytes_total").set(total)
-        for fam, r in by_family.items():
-            reg.gauge(f"memory.device_live_bytes.{fam}").set(
-                r["retained_bytes"])
+        for fam, nb in by_family.items():
+            reg.gauge(f"memory.device_live_bytes.{fam}").set(nb)
         return {"total_bytes": total, "reserved_bytes": reserved,
                 "peak_bytes": peak, "by_device": by_device,
                 "by_family": by_family, "buffers_dropped": 0}
@@ -393,6 +397,10 @@ class MemorySampler:
                 "memory.rss_peak_bytes": host["rss_peak_bytes"],
                 "memory.device_live_bytes_total":
                     device["total_bytes"],
+                # the caching allocator's hold and high-water mark:
+                # merged across a fleet as min/max/sum like any gauge
+                "memory.device_reserved_bytes": device["reserved_bytes"],
+                "memory.device_peak_bytes": device["peak_bytes"],
                 "memory.pressure_state":
                     1.0 if self.pressure.state == "pressure"
                     else 0.0,
@@ -455,6 +463,121 @@ def _armed_controller_tripped() -> bool:
     with _CONTROLLERS_LOCK:
         ctls = list(_CONTROLLERS)
     return any(c.should_shed() for c in ctls)
+
+
+# ---- fleet merge ----
+
+
+def merge_memory(bodies: list[dict]) -> dict:
+    """Merge worker ``/debug/memory`` bodies: counters as EXACT
+    arithmetic sums (pinned by test to equal the sum of the inputs, in
+    both the JSON and prom encodings), gauges as
+    per-worker {min, max, sum}, device family bytes summed
+    family-wise. Non-dict bodies are skipped (a worker mid-restart
+    must not poison the merge); ``per_worker`` is the caller's to
+    attach."""
+    counters: dict[str, int] = {}
+    gauges: dict[str, dict] = {}
+    by_family: dict[str, int] = {}
+    workers = 0
+    in_pressure = 0
+    enabled = False
+    for b in bodies:
+        if not isinstance(b, dict) or "host" not in b:
+            continue
+        workers += 1
+        enabled = enabled or bool(b.get("enabled"))
+        if (b.get("pressure") or {}).get("state") == "pressure":
+            in_pressure += 1
+        for k, v in (b.get("counters") or {}).items():
+            counters[k] = counters.get(k, 0) + int(v)
+        for k, v in (b.get("gauges") or {}).items():
+            g = gauges.get(k)
+            v = float(v)
+            if g is None:
+                gauges[k] = {"min": v, "max": v, "sum": v}
+            else:
+                g["min"] = min(g["min"], v)
+                g["max"] = max(g["max"], v)
+                g["sum"] = g["sum"] + v
+        fams = ((b.get("device") or {}).get("by_family") or {})
+        for fam, nb in fams.items():
+            by_family[fam] = by_family.get(fam, 0) + int(nb)
+    return {
+        "schema": MEMORY_SCHEMA,
+        "workers": workers,
+        "enabled": enabled,
+        "workers_in_pressure": in_pressure,
+        "counters": dict(sorted(counters.items())),
+        "gauges": {k: {m: gauges[k][m] for m in ("min", "max",
+                                                 "sum")}
+                   for k in sorted(gauges)},
+        "device_by_family": dict(sorted(by_family.items())),
+    }
+
+
+def merge_merged_memory(bodies: list[dict]) -> dict:
+    """Merge already-merged ``/fleet/memory`` documents one tier up
+    (the federation over its fleets): counter sums stay exact sums,
+    gauge aggregates compose as min-of-mins / max-of-maxes /
+    sum-of-sums, worker tallies and family bytes add. Composition is
+    associative by construction — the federation's numbers equal a
+    flat merge over every worker."""
+    counters: dict[str, int] = {}
+    gauges: dict[str, dict] = {}
+    by_family: dict[str, int] = {}
+    workers = 0
+    in_pressure = 0
+    enabled = False
+    for b in bodies:
+        if not isinstance(b, dict) or "counters" not in b:
+            continue
+        workers += int(b.get("workers") or 0)
+        in_pressure += int(b.get("workers_in_pressure") or 0)
+        enabled = enabled or bool(b.get("enabled"))
+        for k, v in (b.get("counters") or {}).items():
+            counters[k] = counters.get(k, 0) + int(v)
+        for k, agg in (b.get("gauges") or {}).items():
+            g = gauges.get(k)
+            if g is None:
+                gauges[k] = {m: float(agg[m])
+                             for m in ("min", "max", "sum")}
+            else:
+                g["min"] = min(g["min"], float(agg["min"]))
+                g["max"] = max(g["max"], float(agg["max"]))
+                g["sum"] = g["sum"] + float(agg["sum"])
+        for fam, nb in (b.get("device_by_family") or {}).items():
+            by_family[fam] = by_family.get(fam, 0) + int(nb)
+    return {
+        "schema": MEMORY_SCHEMA,
+        "workers": workers,
+        "enabled": enabled,
+        "workers_in_pressure": in_pressure,
+        "counters": dict(sorted(counters.items())),
+        "gauges": {k: gauges[k] for k in sorted(gauges)},
+        "device_by_family": dict(sorted(by_family.items())),
+    }
+
+
+def flatten_merged(merged: dict) -> dict:
+    """A merged /fleet/memory document as a registry-style snapshot
+    {counters, gauges} for ``obs.prometheus.render`` — counter names
+    ride verbatim (the prom body's ``memory_*_total`` lines ARE the
+    exact sums), gauges flatten to ``<name>.min/.max/.sum``."""
+    counters = dict(merged.get("counters") or {})
+    gauges: dict[str, float] = {
+        "memory.fleet_workers": merged.get("workers", 0),
+        "memory.fleet_workers_in_pressure":
+            merged.get("workers_in_pressure", 0),
+    }
+    for k, agg in (merged.get("gauges") or {}).items():
+        for m in ("min", "max", "sum"):
+            gauges[f"{k}.{m}"] = agg[m]
+    for fam, nb in (merged.get("device_by_family") or {}).items():
+        gauges[f"memory.device_live_bytes.{fam}.sum"] = nb
+    return {"counters": dict(sorted(counters.items())),
+            "gauges": dict(sorted(gauges.items())),
+            "histograms": {}}
 
 
 def auto_chunk_samples(per_sample_bytes: int, budget_bytes: int,

@@ -29,35 +29,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..io.sampleindex import (  # noqa: F401 (the host helpers, shared)
+    median_size_per_tile, normalized_depth)
+
 SLOTS = 70
 SLOTS_MID = 2.0 / 3.0
 MAX_CN = 8.0
 PLOIDY = 2
-DEPTH_CAP = 50000.0
-
-
-def median_size_per_tile(sizes: list[np.ndarray]) -> float:
-    """Host, int64-exact (indexcov/indexcov.go:96-124)."""
-    flat = np.concatenate([np.asarray(s, dtype=np.int64) for s in sizes]) \
-        if sizes else np.zeros(0, dtype=np.int64)
-    if flat.size < 1:
-        raise ValueError("indexcov: no usable chromosomes in index")
-    flat = np.sort(flat)
-    n98 = flat[int(0.98 * len(flat))]
-    capped = np.minimum(flat, n98)
-    cumsum = np.cumsum(capped)
-    total = int(cumsum[-1])
-    idx = int(np.searchsorted(cumsum, total // 2, side="right"))
-    idx = min(idx, len(flat) - 1)
-    return float(flat[idx])
-
-
-def normalized_depth(sizes: np.ndarray, median: float) -> np.ndarray:
-    """float32 scaled depth, capped at 50000 (indexcov.go:129-151)."""
-    if median == 0:
-        return np.zeros(0, dtype=np.float32)
-    d = (np.asarray(sizes, dtype=np.float64) / median).astype(np.float32)
-    return np.minimum(d, np.float32(DEPTH_CAP))
 
 
 _SCALE = np.float32(SLOTS * np.float32(SLOTS_MID))  # 46.666668 in f32

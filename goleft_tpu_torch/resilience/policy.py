@@ -7,7 +7,7 @@ path uses.
   type errors, injected permanents) fail fast.
 - :meth:`RetryPolicy.backoff_s`: exponential backoff scaled by a
   deterministic hash-of-(key, attempt) jitter in [0.5, 1.0).
-- A :class:`~goleft_tpu_torch.device.KernelFault` (a kernel that did not
+- A :class:`~goleft_tpu_torch.errors.KernelFault` (a kernel that did not
   build, launch or finish) is neither retried nor classified: it passes
   through, so a broken card or toolchain fails the run with its own
   error instead of quarantining every bucket.
@@ -25,7 +25,7 @@ import threading
 import time
 from dataclasses import dataclass
 
-from ..device import KernelFault
+from ..errors import KernelFault
 from ..obs import get_logger, get_registry
 from .faults import InjectedFault, InjectedPermanentFault
 

@@ -1,4 +1,4 @@
-"""Thin stdlib client for the serve daemon.
+"""Thin stdlib client for the serve daemon and the fleet router.
 
 urllib-only, so scripts and chip_smoke.py need nothing beyond this
 repo (a copy of the JAX package's serve/client.py). Methods mirror the
@@ -210,6 +210,28 @@ class ServeClient:
         path = "/debug/flight" + \
             (f"?{urlencode(params)}" if params else "")
         return self._request(path)
+
+    def fleet_trace(self, trace_id: str) -> dict:
+        """Fleet router only: the stitched cross-process trace for
+        ``trace_id`` — the router's forward spans plus every worker's
+        matching request/batch trees, with a Perfetto export inside
+        (``goleft-tpu-torch trace <id> --router URL`` pretty-prints it)."""
+        from urllib.parse import quote
+
+        return self._request(f"/fleet/trace/{quote(trace_id)}")
+
+    def fleet_metrics(self) -> dict:
+        """Fleet router only: the rolled-up worker metrics (counters
+        summed, gauges per-worker + min/max/sum, merged histogram
+        summaries, fleet SLO burn rates)."""
+        return self._request("/fleet/metrics")
+
+    def route_plan(self, kind: str, **params) -> list[str]:
+        """Fleet router only: the candidate worker order a request
+        with these params would route to (no forwarding): how a caller
+        finds a request's affinity home."""
+        return self._request("/fleet/plan",
+                             {"kind": kind, **params})["candidates"]
 
     # ---- workloads ----
 

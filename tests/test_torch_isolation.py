@@ -2,6 +2,7 @@
 writer import neither JAX nor the JAX package, and a default run needs a
 CUDA card rather than dropping to the CPU."""
 
+import json
 import os
 import re
 import subprocess
@@ -45,7 +46,8 @@ def test_sources_import_neither_jax_nor_reference():
         seen.append(os.path.relpath(path, PKG))
     assert len(seen) > 10
     for sub in ("obs", "plan", "resilience", "models", "ops", "commands",
-                "io", "parallel", "utils", "cohort", "mapping", "serve"):
+                "io", "parallel", "utils", "cohort", "mapping", "serve",
+                "fleet"):
         assert any(p.startswith(sub + os.sep) for p in seen), sub
     assert _FORBIDDEN.search("import jax.numpy as jnp")
     assert _FORBIDDEN.search("from goleft_tpu.io import bam")
@@ -768,8 +770,187 @@ def test_cli_lists_depth():
     assert sorted(cli.PROGS) == ["anonymize", "cnv", "cnveval",
                                  "cohortdepth", "cohortscan", "covstats",
                                  "dcnv", "depth", "depthwed", "emdepth",
-                                 "indexcov", "indexsplit", "map",
-                                 "multidepth", "pairhmm", "samplename",
-                                 "serve"]
+                                 "federation", "fleet", "indexcov",
+                                 "indexsplit", "map", "memory",
+                                 "multidepth", "pairhmm", "profile",
+                                 "samplename", "serve", "trace", "warmup"]
     assert cli.main(["--help"]) == 0
     assert cli.main(["nope"]) == 1
+
+
+# ---------------- the torch-free processes ----------------
+
+#: the modules of the processes that never touch the card: the fleet's
+#: router and supervisor, the federation, the HTTP clients of the
+#: observability surfaces, and what they share with the device commands
+TORCH_FREE_MODULES = [
+    "goleft_tpu_torch.fleet", "goleft_tpu_torch.fleet.federation",
+    "goleft_tpu_torch.fleet.cachesync",
+    "goleft_tpu_torch.commands.fleet",
+    "goleft_tpu_torch.commands.federation",
+    "goleft_tpu_torch.commands.trace_cmd",
+    "goleft_tpu_torch.commands.warmup",
+    "goleft_tpu_torch.commands.profile_cmd",
+    "goleft_tpu_torch.commands.memory_cmd",
+    "goleft_tpu_torch.obs.events", "goleft_tpu_torch.obs.fleetplane",
+    "goleft_tpu_torch.resilience.policy", "goleft_tpu_torch.plan",
+    "goleft_tpu_torch.io.remote", "goleft_tpu_torch.commands.indexsplit",
+    "goleft_tpu_torch.errors", "goleft_tpu_torch.cli",
+]
+
+
+@pytest.mark.parametrize("module", TORCH_FREE_MODULES)
+def test_module_loads_no_torch(module):
+    """A fresh interpreter that imports the module has neither torch nor
+    jax nor the JAX package loaded: the retry policy names KernelFault
+    from a torch-free module, so the router, supervisor and federation
+    processes that share it never pay torch's import."""
+    code = ("import sys, importlib\n"
+            f"importlib.import_module({module!r})\n"
+            "bad = sorted({m.split('.')[0] for m in sys.modules}\n"
+            "             & {'torch', 'jax', 'jaxlib', 'goleft_tpu'})\n"
+            "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_kernel_fault_is_one_class_and_passes_the_retry_policy():
+    """The class the kernels raise is the one the retry policy lets
+    through unretried; device.py re-exports it."""
+    from goleft_tpu_torch import errors
+    from goleft_tpu_torch.ops import depth_kernel, pairhmm_kernel
+    from goleft_tpu_torch.resilience import policy
+
+    assert device.KernelFault is errors.KernelFault is policy.KernelFault
+    assert depth_kernel.KernelFault is pairhmm_kernel.KernelFault \
+        is errors.KernelFault
+    assert device.NoCudaDevice is errors.NoCudaDevice is cli.NoCudaDevice
+    calls = []
+
+    def thunk():
+        calls.append(1)
+        raise depth_kernel.KernelFault("launch failed")
+
+    with pytest.raises(errors.KernelFault):
+        policy.RetryPolicy(retries=3, base_delay_s=0.0).call("k", thunk)
+    assert len(calls) == 1
+
+
+def _fixture_bam(d) -> str:
+    from goleft_tpu_torch.io.bai import build_bai, write_bai
+    from goleft_tpu_torch.io.bam import BamWriter, parse_cigar
+
+    hdr = ("@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:50000\n"
+           "@RG\tID:r\tSM:s0\n")
+    bam = os.path.join(str(d), "t.bam")
+    with open(bam, "wb") as fh:
+        with BamWriter(fh, hdr, ["chr1"], [50000]) as w:
+            for i, s in enumerate(range(0, 45000, 60)):
+                w.write_record(0, s, parse_cigar("100M"), name=f"r{i}")
+    write_bai(build_bai(bam), bam + ".bai")
+    return bam
+
+
+def test_host_commands_load_no_torch(tmp_path):
+    """``python -m goleft_tpu_torch`` runs each host command (and the
+    new fleet-tier commands, here against nothing) without loading
+    torch; ``--metrics-out`` on a host command writes a manifest of no
+    kernel launches, also without torch."""
+    bam = _fixture_bam(tmp_path)
+    journal = tmp_path / "events.jsonl"
+    journal.write_text("")
+    dead = "http://127.0.0.1:9"
+    runs = [
+        (["samplename", bam], 0),
+        (["--metrics-out", str(tmp_path / "m.json"), "samplename", bam],
+         0),
+        (["indexsplit", "-n", "2", bam], 0),
+        (["fleet", "events", "--journal", str(journal), "--json"], 0),
+        (["trace", "t-1", "--router", dead, "--timeout-s", "2"], 1),
+        (["warmup", "export", "--url", dead, "--out",
+          str(tmp_path / "w.json")], 1),
+        (["memory", "--url", dead], 1),
+        (["profile", "--url", dead, "--seconds", "0.1"], 1),
+    ]
+    script = textwrap.dedent("""
+        import contextlib, io, json, runpy, sys
+        rcs = []
+        for argv, _ in json.loads(sys.argv[1]):
+            sys.argv = ["goleft_tpu_torch"] + argv
+            with contextlib.redirect_stdout(io.StringIO()), \\
+                    contextlib.redirect_stderr(io.StringIO()):
+                try:
+                    runpy.run_module("goleft_tpu_torch",
+                                     run_name="__main__")
+                    rcs.append(0)
+                except SystemExit as e:
+                    rcs.append(e.code or 0)
+        bad = sorted({m.split(".")[0] for m in sys.modules}
+                     & {"torch", "jax", "jaxlib", "goleft_tpu"})
+        print("RCS", rcs)
+        print("LOADED", bad)
+    """)
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", script, json.dumps(runs)],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(tmp_path), env=env)
+    assert r.returncode == 0, r.stderr
+    assert f"RCS {[rc for _, rc in runs]}" in r.stdout, r.stdout
+    assert "LOADED []" in r.stdout, r.stdout
+    from goleft_tpu.obs.manifest import load_manifest
+
+    doc = load_manifest(str(tmp_path / "m.json"))
+    assert doc["command"] == "samplename" and doc["exit_code"] == 0
+    assert doc["kernel_launches"] == {}
+    assert doc["backend"]["platform"] == "cpu"
+
+
+class _FakeChild:
+    """A Popen stand-in that announces a URL and records its argv."""
+
+    seen: list = []
+
+    def __init__(self, argv, **kw):
+        import io as _io
+
+        _FakeChild.seen.append(list(argv))
+        self.stdout = _io.StringIO("goleft-tpu-torch serve: listening on "
+                                   "http://127.0.0.1:1\n")
+        self.pid = 4242
+
+    def poll(self):
+        return None
+
+
+@pytest.mark.parametrize("where", ["supervisor", "fleet", "federation"])
+def test_default_spawn_runs_the_port(monkeypatch, where):
+    """The supervisor's default spawn and the fleet command's spawn run
+    ``python -m goleft_tpu_torch serve``; the federation's runs
+    ``python -m goleft_tpu_torch fleet`` (Popen replaced; nothing real
+    is spawned)."""
+    import subprocess as sp
+
+    from goleft_tpu_torch.commands import federation as fed_cmd
+    from goleft_tpu_torch.commands import fleet as fleet_cmd
+    from goleft_tpu_torch.fleet import supervisor
+
+    _FakeChild.seen = []
+    monkeypatch.setattr(sp, "Popen", _FakeChild)
+    if where == "supervisor":
+        sup = supervisor.Supervisor(worker_args=["--max-batch", "8"],
+                                    min_workers=1, max_workers=1)
+        _, url = sup._spawn_serve(0)
+        want = ["serve", "--port", "0", "--max-batch", "8"]
+    elif where == "fleet":
+        _, url = fleet_cmd._spawn_worker(["--cache", "c"], {})
+        want = ["serve", "--port", "0", "--cache", "c"]
+    else:
+        _, url = fed_cmd._spawn_fleet(2, [], {})
+        want = ["fleet", "--port", "0", "--workers", "2"]
+    assert url == "http://127.0.0.1:1"
+    (argv,) = _FakeChild.seen
+    assert argv[:3] == [sys.executable, "-m", "goleft_tpu_torch"]
+    assert argv[3:] == want
