@@ -55,7 +55,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
    numpy f64 log-space oracle and the long bucket against a row-at-a-time
    f64 oracle checked against it (1e-4 log10 in f32, 1e-9 in f64); prints the kernel's and the
    plain version's median ms, GCUPS and the compute bound;
-6. fabricates a windows document of 500 windows (4 haplotypes of
+6. fabricates a windows document of 200 windows (4 haplotypes of
    350-452 bp, 80 reads of 150 bp each), runs ``python -m
    goleft_tpu_torch pairhmm --candidates`` on ~80% of it in a fresh
    process, checks the table, the launch count (one per length bucket)
@@ -63,7 +63,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
    the seconds, pairs/s, GCUPS and stage split; then a run with a
    permanent injected fault must exit 3 with a quarantine manifest;
 7. fabricates a CRAM cohort with tools/bulk_cram.py: 4 samples of
-   200,000 reads of 150 bp with quality strings (3% MAPQ 0, 2%
+   50,000 reads of 150 bp with quality strings (3% MAPQ 0, 2%
    duplicates) on one 2,000,000 bp contig, 10,000 records per container,
    rANS-Nx16 blocks ORDER0, ORDER1, ORDER1 and STRIPE 4 (the JAX
    package's make_cram_cohort with a second ORDER1 sample, so two sample
@@ -72,12 +72,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
 8. holds the rANS kernel against its plain version bitwise: N = 4 and X32
    x ORDER0 and ORDER1 x plain, RLE, PACK and RLE+PACK at the sizes of
    tests/test_rans_device.py up to 20,000 bytes, and STRIPE with uneven
-   lanes, on the card; eight threads, each on its own CUDA stream,
+   lanes (the plain version on the host CPU, in a worker process);
+   eight threads, each on its own CUDA stream,
    launching ORDER1 groups of seven table sizes at once, each launch
    against the plain version; then every launch of one real 10,000-record
    container of each codec (ORDER0, ORDER1, STRIPE 4) against the plain
    version run on the host CPU on copies of the same inputs (in worker
-   processes that run on beside phases 9-10; held once phase 10 ends);
+   processes that run on beside phases 9-13; held once phase 13 ends);
    the device decode (kernel, expansions, interleave) against the data
    and the host decoder; a missing ORDER1 context must raise; prints the
    kernel's and the plain version's time per container of each codec,
@@ -86,7 +87,8 @@ Run from the root of a checkout, on a machine with one CUDA card:
    alone too) and both bounds;
 9. runs ``python -m goleft_tpu_torch cohortdepth --decode-device`` on the
    cohort in fresh processes, with the hybrid engine (the main path), the
-   device engine, and ``GOLEFT_TPU_FAULTS=decode:after=1:transient``;
+   device engine, and ``GOLEFT_TPU_FAULTS=decode:after=1:transient`` (the
+   last two side by side);
    every matrix must equal the oracle byte for byte, with no decode
    fallback and exactly the rans launches counted on the host from the
    files (per shard, the containers it decodes; per container, its
@@ -104,10 +106,13 @@ Run from the root of a checkout, on a machine with one CUDA card:
    on a four-region BED killed by ``--inject-faults
    shard:after=2:kill`` (SIGKILL), resumed (the oracle's bytes, fewer
    rans launches than an uninterrupted run) and resumed again over the
-   complete store (0 rans launches, the same bytes);
+   complete store (0 rans launches, the same bytes); the kill and resume
+   runs, the pairhmm trace and the profile go on beside the cache runs
+   and the cohortdepth trace;
 11. the EM at cohort width: an int16 matrix of 64,445 windows (chr20 at
-   1 kb) x 2,504 samples (the 1000 Genomes phase-3 cohort) with planted
-   deletions and duplications, through ``call_cnvs``'s normalisation and
+   1 kb) x 2,504 samples (the 1000 Genomes phase-3 cohort; Poisson
+   counts drawn on the card from a seed) with planted deletions and
+   duplications, through ``call_cnvs``'s normalisation and
    ``_batched_em`` on the card (four 16,384-window f64 chunks); λ of 64
    sampled windows within rtol = atol = 1e-9 of tests/oracle_emdepth.py
    and their CN equal to its CN clamped at 8; cn.mops on one chunk
@@ -138,7 +143,7 @@ Run from the root of a checkout, on a machine with one CUDA card:
    (CUDA events, median of 20) and its cycles a bin, the plain
    version's, the bytes bound and the dependence chain's
    (NORM_CYCLES_PER_BIN);
-14. fabricates 150 whole-genome .bai files (hg38's 24 chromosomes at
+14. fabricates 100 whole-genome .bai files (hg38's 24 chromosomes at
    their GRCh38 lengths, 188,457 bins a sample, sex planted, three latent
    factors a sample planted: IC_FACTORS) with an
    .fai, and runs ``python -m goleft_tpu_torch indexcov`` in fresh
@@ -146,25 +151,25 @@ Run from the root of a checkout, on a machine with one CUDA card:
    the reports, against a numpy oracle from the raw indexes (bed.gz,
    CN of chrX and chrY, bin counters, sex) and the port's CPU path
    (byte-identical but the PCA columns and charts, equal up to sign);
-   run B, all 150 with ``-n --no-html`` (22 indexcov_norm launches), its
+   run B, all 100 with ``-n --no-html`` (22 indexcov_norm launches), its
    chr21 rows of bed.gz and ROC against the CPU path's ``-c chr21 -n``;
    a 30-sample ``-n`` run killed by ``shard:after=5:kill``, resumed
    (byte-identical to an uninterrupted run, fewer launches) and resumed
-   again (0 launches); prints each run's seconds, import seconds, seven
-   stage totals and samples/s;
-15. runs ``python -m goleft_tpu_torch cohortscan`` on phase 14's 150
-   .bai files in fresh processes, one after another, in chunks of 38
+   again (0 launches), these beside the checks of runs A and B; prints
+   each run's seconds, import seconds, seven stage totals and samples/s;
+15. runs ``python -m goleft_tpu_torch cohortscan`` on phase 14's 100
+   .bai files in fresh processes, in chunks of 25
    samples: run S with ``-n`` (22 x 4 indexcov_norm launches), its
    bed.gz and ROC byte-identical to phase 14's run B and its .ped too
    but the PC columns, equal up to sign; run P without ``-n``, its PCs
    against a float64 oracle from the raw indexes on the card; the first
-   135 samples killed by ``shard:after=5:kill`` (the QC blocks of chr1's
-   four chunks committed) and resumed, then all 150 under ``--resume``
-   with ``--pca sharded``: exactly 15 x 24 QC blocks computed, the bytes
+   90 samples killed by ``shard:after=5:kill`` (the QC blocks of chr1's
+   four chunks committed) and resumed, then all 100 under ``--resume``
+   with ``--pca sharded``: exactly 10 x 24 QC blocks computed, the bytes
    of run P but the PCs, and its PCs against the oracle and run P's
    (each component that 32 power iterations resolve, within its
-   tolerance); prints each run's seconds, import seconds, stage totals
-   and samples/s;
+   tolerance), the kill and append runs beside run P; prints each run's
+   seconds, import seconds, stage totals and samples/s;
 16. holds the depth kernel against its plain version on the card at
    multidepth's shapes (one 5 Mb chunk of phase 4's BAM, dense, window
    1, on both wires), then runs ``python -m goleft_tpu_torch multidepth``
@@ -231,7 +236,22 @@ Run from the root of a checkout, on a machine with one CUDA card:
    levels; no torch mapped), SIGTERM to both → exit 0 with no worker
    left; prints the up, announce and restart seconds and each
    request's latency beside phase 19's direct one;
-21. prints the kernels line, the card's ``nvidia-smi`` name and power
+21. multi-device, two processes of one Gloo world on the one card:
+   ``cohortdepth`` and ``cnv --vcf --matrix-out`` (``--engine device``)
+   on phase 12's 8 BAMs, process 0's output byte-identical to phase 12's
+   single-process runs and process 1 silent on stdout (four depth
+   launches a process); ``sharded_depth_fn`` on a (1, 2) grid, 8 samples
+   of ``shard_segments`` over 2 x 10 Mb, both carry modes, the assembled
+   depth and window sums bitwise the plain version's over the whole 20
+   Mb; ``run_prefetched_cohort`` on that grid (4 chunks, all of those
+   segments, no depth to the host) at prefetch depth 0 and 2 and in a
+   world of one in this process, λ, CN and window means bitwise,
+   the window means the plain version's; the split over ``cuda:0``
+   twice: ``_batched_em`` on phase 11's matrix bitwise, the PCA's Gram
+   step within ``pca_tolerances``; ``measure_resume_overhead(quick=True)``
+   and ``bisect_bench.measure()``; prints the phase's seconds and its
+   depth launches;
+22. prints the kernels line, the card's ``nvidia-smi`` name and power
    limit, and as the last line ``{"ok": true, "device": ...}``.
 
 Exits non-zero, printing no result, without a CUDA device, outside a
@@ -251,6 +271,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -497,6 +518,27 @@ def _edge_big_sums(rng):
                                          MAX_MEAN, length, 65_536)
 
 
+def _edge_seq_shard(window, max_len):
+    def build(rng):
+        # the local step of a seq shard (parallel/sharded_coverage.py):
+        # the start and end lists hold this shard's endpoints only, each
+        # slot padded with the shard's top, so a read that began in a
+        # shard to the left adds its -1 here alone and the local depth
+        # goes below zero before the carry is added
+        lo, length = 300_000, 100_000
+        hi = lo + length
+        s = rng.integers(lo - 50_000, hi + 50_000, 6_000)
+        e = s + rng.integers(0, max_len, 6_000)
+        ss = np.where((s >= lo) & (s < hi), s, hi)
+        ee = np.where((e >= lo) & (e < hi), e, hi)
+        ss[0], ee[0] = lo, hi  # one slot over the whole shard
+        keep = (ss < hi) | (ee < hi)
+        keep[1::97] = False
+        return (ss.astype(np.int32), ee.astype(np.int32), keep,
+                (lo, lo, hi, 2**31 - 1, MIN_COV, 0, length, window))
+    return build
+
+
 #: the depth kernel's edge cases: name → builder(rng) → (seg_start,
 #: seg_end, keep, (w0, rs, re, cap, min_cov, max_mean, length, window));
 #: tests/test_torch_cuda.py runs them on the card and
@@ -513,7 +555,14 @@ DEPTH_EDGES = {
     "window_250": _edge_window(250),
     "window_wider_than_tile": _edge_wide_window,
     "sums_above_2e24": _edge_big_sums,
+    "zero_crossing_seq_shard": _edge_seq_shard(WINDOW, 3_000),
+    "zero_crossing_wide_window": _edge_seq_shard(5_000, 20_000),
 }
+#: the cases the u16 wire cannot carry: a seq shard's start and end
+#: lists are not segments (an end may precede its slot's start), and one
+#: slot spans the whole 100,000-base shard
+DEPTH_EDGES_INT32_ONLY = ("zero_crossing_seq_shard",
+                          "zero_crossing_wide_window")
 
 
 def depth_edge_case(name: str):
@@ -943,7 +992,7 @@ def e2e_phase(root: str, workdir: str):
 PH_B = 4096  # pairs of the kernel phase's main bucket
 PH_READ, PH_HAP = 150, 416  # r_pad 160 (r1 161), h_pad 416
 PH_LONG = (1100, 1200, 8)  # read bp, hap bp, pairs: r1 1121, two strips
-PH_WINDOWS, PH_WINDOW_READS = 500, 80
+PH_WINDOWS, PH_WINDOW_READS = 200, 80
 PH_ORACLE_WINDOWS = 20
 PH_FAULT_SPEC = "pairhmm:every=1:permanent:times=99"
 # r1 values that reach each compiled R (r1 = 32 R) and the first r1 of
@@ -1423,6 +1472,13 @@ def _run_cli(root: str, args: list[str], env: dict):
     return r, time.perf_counter() - t0
 
 
+#: the runs that only check outputs (faults, kills and resumes, traces,
+#: second engines) go on in these threads beside their phase's other
+#: work; the runs whose seconds are the phase's measurements run alone.
+#: Each phase waits for its own before it returns.
+_BG = ThreadPoolExecutor(6, thread_name_prefix="chip-smoke-bg")
+
+
 def read_manifest(path: str, prog: str):
     """A CLI run's ``--metrics-out`` run manifest, validated
     (obs/manifest.py) → (manifest, the command's seconds: its
@@ -1436,7 +1492,7 @@ def read_manifest(path: str, prog: str):
 
 def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     """``python -m goleft_tpu_torch pairhmm`` at full width in a fresh
-    process: 500 windows x 4 haplotypes x 80 reads of 150 bp, ~80% of
+    process: 200 windows x 4 haplotypes x 80 reads of 150 bp, ~80% of
     them selected by a candidates BED; table rows, launch count, a
     20-window oracle subset; then a permanent fault quarantines and the
     run exits 3."""
@@ -1480,6 +1536,20 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
     by_key = {(t[0], int(t[1])): t for t in (x.split("\t")
                                              for x in rows[1:])}
 
+    # degraded run, beside the oracle subset: every bucket fails
+    # permanently → quarantine, exit 3
+    small = dict(doc, windows=[dict(w, reads=w["reads"][:10])
+                               for w in doc["windows"][:5]])
+    spath = os.path.join(workdir, "small.json")
+    with open(spath, "w") as fh:
+        json.dump(small, fh)
+    qpath = os.path.join(workdir, "quarantine.json")
+    freport = os.path.join(workdir, "fault_report.json")
+    fault = _BG.submit(_run_cli, root, [
+        "--metrics-out", freport, "pairhmm", "--quarantine-out", qpath,
+        "--out", os.path.join(workdir, "fault.tsv"), spath],
+        dict(env, GOLEFT_TPU_FAULTS=PH_FAULT_SPEC))
+
     from goleft_tpu_torch.ops.pairhmm import encode_seq, phred_to_err
 
     t0 = time.perf_counter()
@@ -1516,18 +1586,7 @@ def pairhmm_e2e_phase(root: str, workdir: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items()))
         + f", unattributed {rest:.3f}")
 
-    # degraded run: every bucket fails permanently → quarantine, exit 3
-    small = dict(doc, windows=[dict(w, reads=w["reads"][:10])
-                               for w in doc["windows"][:5]])
-    spath = os.path.join(workdir, "small.json")
-    with open(spath, "w") as fh:
-        json.dump(small, fh)
-    qpath = os.path.join(workdir, "quarantine.json")
-    freport = os.path.join(workdir, "fault_report.json")
-    r, _ = _run_cli(root, ["--metrics-out", freport, "pairhmm",
-                           "--quarantine-out", qpath, "--out",
-                           os.path.join(workdir, "fault.tsv"), spath],
-                    dict(env, GOLEFT_TPU_FAULTS=PH_FAULT_SPEC))
+    r, _ = fault.result()
     assert r.returncode == 3, (r.returncode, r.stderr[-2000:])
     with open(qpath) as fh:
         q = json.load(fh)["quarantined"]
@@ -1564,7 +1623,7 @@ RANS_O1_SHIFTS = (10, 7)
 # (~12), the multiply-add (~9), then as ORDER0 (~21). STRIPE lanes are
 # ORDER0.
 RANS_CYCLES_PER_ROUND = {"ORDER0": 68, "ORDER1": 84, "STRIPE4": 68}
-CO_SAMPLES, CO_LEN, CO_READS = 4, 2_000_000, 200_000
+CO_SAMPLES, CO_LEN, CO_READS = 4, 2_000_000, 50_000
 CO_RPC, CO_WINDOW = 10_000, 500
 # (rANS order, stripe lanes) per sample, as the JAX package's
 # ops/decode_smoke.py::make_cram_cohort (ORDER0, ORDER0, ORDER1, STRIPE 4)
@@ -1682,8 +1741,6 @@ def rans_threads_check(dev) -> tuple:
     contexts: 4 KB to 199 KB of dynamic shared memory) at once, 42 each;
     every launch against the plain version on the host CPU. Returns
     (launches, max abs err)."""
-    from concurrent.futures import ThreadPoolExecutor
-
     import torch
 
     from goleft_tpu_torch.io import rans_nx16 as rx
@@ -1758,11 +1815,22 @@ def sm_clock_hz() -> float:
     return float(r.stdout.strip().splitlines()[0]) * 1e6
 
 
-def rans_kernel_checks(dev) -> float:
-    """The rANS kernel against its plain version, bitwise, on the flag
-    matrix and on eight threads' ORDER1 launches; the device decode
-    against the data; a missing ORDER1 context must raise → the max
-    abs error."""
+def _host_copies(groups) -> list:
+    """Launch groups with their tensors copied to the host CPU, for
+    :func:`rans_plain_on_host` in a worker process."""
+    return [(key, grp, {n: v.cpu() for n, v in t.items()})
+            for key, grp, t in groups]
+
+
+def rans_kernel_checks(dev, pool) -> tuple:
+    """The rANS kernel on the flag matrix and on eight threads' ORDER1
+    launches, bitwise against its plain version; the device decode
+    against the data; a missing ORDER1 context must raise → (the max abs
+    error so far, the flag matrix's (groups, future of their plain
+    version)): the plain version of the flag matrix runs in one of
+    ``pool``'s worker processes on the host CPU (on the card each of its
+    rounds is a few dozen small launches, ~20 s), and the caller holds
+    the groups against it once it is done."""
     from goleft_tpu_torch.io import rans_nx16 as rx
     from goleft_tpu_torch.ops import rans_device as rd
     from goleft_tpu_torch.ops import rans_kernel as rk
@@ -1772,17 +1840,20 @@ def rans_kernel_checks(dev) -> float:
     cases = rans_flag_matrix(rng)
     plans = [rx.parse_nx16(e, len(d)) for d, e in cases]
     assert all(p is not None for p in plans)
-    held, max_err = rans_bitwise(rans_groups(plans, dev), "flag matrix")
+    flag_groups = rans_groups(plans, dev)
+    flag_plain = pool.apply_async(rans_plain_on_host,
+                                  (_host_copies(flag_groups),))
     got = rd.decode_parsed(plans, device=dev)
     bad = [i for i, ((d, _), g) in enumerate(zip(cases, got)) if g != d]
     assert not bad, f"device decode differs from the data in cases {bad}"
     coded = sum(not (c.cat or c.stripe) for c in plans) + sum(
         not ch.cat for c in plans if c.stripe for ch in c.children)
     log(f"rans kernel flag matrix: {len(cases)} streams ({coded} rANS "
-        f"streams and lanes, the rest CAT), {held} launch "
-        f"groups bitwise equal to the plain version; device decode (kernel, "
-        f"RLE/PACK expansions, STRIPE interleave) equals the data "
-        f"({time.perf_counter() - t0:.1f} s)")
+        f"streams and lanes, the rest CAT) in {len(flag_groups)} launch "
+        f"groups, their plain version started on the host CPU; device "
+        f"decode (kernel, RLE/PACK expansions, STRIPE interleave) equals "
+        f"the data ({time.perf_counter() - t0:.1f} s)")
+    max_err = 0
 
     # a context row knocked out: the kernel's diagnostic, as the plain
     # version's, and the JAX package's error
@@ -1794,7 +1865,8 @@ def rans_kernel_checks(dev) -> float:
     p.ctx_index[used[len(used) // 2]] = -1
     (key, grp, t), = rans_groups([p], dev)
     kb = rd.group_stage(key, grp, t)[1]
-    pb = rd.group_stage(key, grp, t, rk.rans_decode_plain)[1]
+    pb = rd.group_stage(key, grp, {n: v.cpu() for n, v in t.items()},
+                        rk.rans_decode_plain)[1]
     assert int(kb[0]) == int(pb[0]) == 1, (kb, pb)
     try:
         rd.decode_parsed([p], device=dev)
@@ -1810,7 +1882,7 @@ def rans_kernel_checks(dev) -> float:
     log(f"rans kernel: {n} ORDER1 launches of 2 to 256 contexts from eight "
         "threads on their own streams, at once, bitwise equal to the plain "
         f"version ({time.perf_counter() - t0:.1f} s)")
-    return max_err
+    return max_err, (flag_groups, flag_plain)
 
 
 def rans_kernel_phase(dev, crams, pool) -> tuple:
@@ -1833,10 +1905,10 @@ def rans_kernel_phase(dev, crams, pool) -> tuple:
     clock = sm_clock_hz()
     # every group of each container against the plain version, run once
     # on the host CPU (on the card each of its rounds is a few dozen small
-    # launches, minutes at 375,000 rounds), the three containers at once
-    # in worker processes, started first (the ORDER1 container takes
-    # longest, about 100 s) while the card runs the checks, times the
-    # kernel and goes on to the cohort phases
+    # launches, minutes at 375,000 rounds), the three containers and the
+    # flag matrix at once in worker processes, started first (the ORDER1
+    # container takes longest, about 100 s) while the card runs the
+    # checks, times the kernel and goes on to the cohort phases
     pending = []
     containers = []
     for k, label in ((0, "ORDER0"), (2, "ORDER1"), (3, "STRIPE4")):
@@ -1845,11 +1917,9 @@ def rans_kernel_phase(dev, crams, pool) -> tuple:
         cplans = [rx.parse_nx16(rb.raw, rb.rsize) for rb in raws]
         assert all(p is not None for p in cplans), label
         groups = rans_groups(cplans, dev)
-        fut = pool.apply_async(rans_plain_on_host, ([
-            (key, grp, {n: v.cpu() for n, v in t.items()})
-            for key, grp, t in groups],))
+        fut = pool.apply_async(rans_plain_on_host, (_host_copies(groups),))
         containers.append((label, raws, cplans, groups, fut))
-    max_err = rans_kernel_checks(dev)
+    max_err, (flag_groups, flag_plain) = rans_kernel_checks(dev, pool)
     for label, raws, cplans, groups, fut in containers:
         t0 = time.perf_counter()
         dec = rd.decode_parsed(cplans, device=dev)
@@ -1903,6 +1973,12 @@ def rans_kernel_phase(dev, crams, pool) -> tuple:
     out["max_abs_err"] = max_err
 
     def finish():
+        wants, plain_s = flag_plain.get()
+        held, err = rans_bitwise(flag_groups, "flag matrix", wants)
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        log(f"rans kernel flag matrix: {held} launch groups bitwise equal "
+            f"to the plain version on the host CPU ({plain_s:.1f} s in a "
+            "worker process)")
         for label, groups, fut, n_raws, n_flat, check_s in pending:
             wants, plain_s = fut.get()
             _, err = rans_bitwise(groups, f"{label} container", wants)
@@ -2033,10 +2109,8 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
         f"containers decoded}}): {plan}; {planned} launches in all")
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("GOLEFT_TPU_FAULTS", None)
-    runs = {}
-    for name, extra, run_env in (
-            ("hybrid", [], env), ("device", ["--engine", "device"], env),
-            ("fault", [], dict(env, GOLEFT_TPU_FAULTS=CO_FAULT))):
+
+    def run(name, extra, run_env):
         report = os.path.join(workdir, f"co_{name}.json")
         r, wall = _run_cli(root, ["--metrics-out", report, "cohortdepth",
                                   "--fai", fai, "-w", str(CO_WINDOW),
@@ -2057,14 +2131,6 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
             assert launches["depth"] == CO_SAMPLES, launches
         if name == "fault":
             assert c.get("resilience.retries_total", 0) >= 1, c
-        runs[name] = {"wall_s": wall, "command_s": cmd_s,
-                      "import_s": rep["import_seconds"],
-                      "stage_seconds": stages, "launches": launches,
-                      "counters": {k: v for k, v in c.items()
-                                   if k.startswith(("decode.", "prefetch.",
-                                                    "resilience."))},
-                      "bases_per_s": CO_SAMPLES * CO_LEN / cmd_s,
-                      "launch_plan": plan}
         log(f"cohortdepth --decode-device ({name}): matrix byte-identical to "
             f"the oracle; process wall {wall:.3f} s, command {cmd_s:.3f} s, "
             f"import {rep['import_seconds']:.3f} s; "
@@ -2075,6 +2141,22 @@ def cohort_e2e_phase(root: str, workdir: str, crams, fai, want: str) -> dict:
             f"{c['decode.host_blocks_total']}, retries "
             f"{c.get('resilience.retries_total', 0)}; stage seconds: "
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
+        return {"wall_s": wall, "command_s": cmd_s,
+                "import_s": rep["import_seconds"],
+                "stage_seconds": stages, "launches": launches,
+                "counters": {k: v for k, v in c.items()
+                             if k.startswith(("decode.", "prefetch.",
+                                              "resilience."))},
+                "bases_per_s": CO_SAMPLES * CO_LEN / cmd_s,
+                "launch_plan": plan}
+
+    # the main path alone; then the device engine and the fault together
+    runs = {"hybrid": run("hybrid", [], env)}
+    rest = {"device": _BG.submit(run, "device", ["--engine", "device"],
+                                 env),
+            "fault": _BG.submit(run, "fault", [], dict(
+                env, GOLEFT_TPU_FAULTS=CO_FAULT))}
+    runs.update({name: f.result() for name, f in rest.items()})
     return runs
 
 
@@ -2158,12 +2240,32 @@ def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
     ``depth --cache`` twice and ``--profile``; ``cohortdepth
     --decode-device`` and ``pairhmm`` under ``--trace-out``; a
     checkpointed cohortdepth killed by ``--inject-faults``, resumed, and
-    resumed again over the complete store."""
+    resumed again over the complete store. The kill-and-resume chain,
+    the pairhmm trace and the profile run beside the cache runs and the
+    cohortdepth trace (each run's seconds are then under that load)."""
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("GOLEFT_TPU_FAULTS", None)
     out: dict = {}
     bam, fa, want_d, want_c = depth_fixture
     shards = -(-E2E_LEN // SHARD)
+
+    # started first: they go on beside the cache runs below. Kill and
+    # resume: a BED that cuts the contig into FLAG_REGIONS regions
+    step = CO_LEN // FLAG_REGIONS
+    with open(os.path.join(workdir, "co_regions.bed"), "w") as fh:
+        for lo in range(0, CO_LEN, step):
+            fh.write(f"chr1\t{lo}\t{min(lo + step, CO_LEN)}\n")
+    whole = _BG.submit(_flags_regions_run, root, workdir, crams, fai,
+                       want, env, "uninterrupted", [])
+    kill = _BG.submit(_flags_kill_resume, root, workdir, crams, fai, want,
+                      env)
+    ph = _BG.submit(_flags_pairhmm_trace, root, workdir, pairhmm_run,
+                    untraced, keep_dir, env)
+    pdir = os.path.join(workdir, "depth_profile")
+    prof = _BG.submit(_run_cli, root, [
+        "depth", "--profile", pdir, "--prefix",
+        os.path.join(workdir, "prof"), "-r", fa, "-w", str(WINDOW), "-m",
+        str(MAX_MEAN), bam], env)
 
     # depth --cache, twice: the second run replays every shard
     cache = os.path.join(workdir, "depth_cache")
@@ -2193,19 +2295,6 @@ def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
         log(f"depth --cache ({run}): both BEDs byte-identical to the "
             f"oracle; depth launches {launches}, cache hits {hits} of "
             f"{shards} shards; command {cmd_s:.3f} s")
-
-    # depth --profile: torch.profiler's trace holds the depth kernels
-    pdir = os.path.join(workdir, "depth_profile")
-    r, _ = _run_cli(root, ["depth", "--profile", pdir, "--prefix",
-                           os.path.join(workdir, "prof"), "-r", fa, "-w",
-                           str(WINDOW), "-m", str(MAX_MEAN), bam], env)
-    assert r.returncode == 0, r.stderr[-4000:]
-    kern = profile_kernels(pdir)
-    for name in ("wire_starts", "depth_tiles"):
-        n = sum(v for k, v in kern.items() if name in k)
-        assert n == shards, (name, kern)
-    out["profile_kernels"] = kern
-    log(f"depth --profile: CUDA kernel events {kern}")
 
     # cohortdepth --decode-device --trace-out: one device.rans span a launch
     trace = os.path.join(workdir, "co_trace.json")
@@ -2238,7 +2327,29 @@ def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
     if keep_dir:
         shutil.copy(trace, os.path.join(keep_dir, "cohortdepth_trace.json"))
 
-    # pairhmm --trace-out: one device.pairhmm span per length bucket
+    # depth --profile: torch.profiler's trace holds the depth kernels
+    r, _ = prof.result()
+    assert r.returncode == 0, r.stderr[-4000:]
+    kern = profile_kernels(pdir)
+    for name in ("wire_starts", "depth_tiles"):
+        n = sum(v for k, v in kern.items() if name in k)
+        assert n == shards, (name, kern)
+    out["profile_kernels"] = kern
+    log(f"depth --profile: CUDA kernel events {kern}")
+    out["pairhmm_trace"] = ph.result()
+    runs = {"uninterrupted": whole.result(), **kill.result()}
+    assert 0 < runs["killed"]["committed"] < FLAG_REGIONS * CO_SAMPLES
+    assert 0 < runs["resumed"]["rans"] < runs["uninterrupted"]["rans"], runs
+    assert runs["resumed"]["resumed"] == runs["killed"]["committed"], runs
+    assert runs["complete"]["rans"] == 0, runs
+    assert runs["complete"]["resumed"] == FLAG_REGIONS * CO_SAMPLES, runs
+    out["kill_resume"] = runs
+    return out
+
+
+def _flags_pairhmm_trace(root, workdir, pairhmm_run, untraced, keep_dir,
+                         env) -> dict:
+    """pairhmm --trace-out: one device.pairhmm span per length bucket."""
     fx = pairhmm_run["fixture"]
     trace = os.path.join(workdir, "ph_trace.json")
     report = os.path.join(workdir, "ph_trace_report.json")
@@ -2256,62 +2367,59 @@ def flags_phase(root: str, workdir: str, depth_fixture, pairhmm_run: dict,
     assert n_ph == rep["kernel_launches"]["pairhmm"] \
         == pairhmm_run["launches"], (n_ph, rep["kernel_launches"])
     share = fenced_kernel_share(tr)
-    out["pairhmm_trace"] = {"command_s": cmd_s,
-                            "untraced_command_s": untraced["pairhmm"],
-                            "device_spans": n_ph, "fenced_kernel_share": share}
     log(f"pairhmm --trace-out: table byte-identical; {n_ph} fenced "
         f"device.pairhmm spans = the launches; fenced-kernel share "
         f"{share:.4f}; command {cmd_s:.3f} s traced against "
         f"{untraced['pairhmm']:.3f} s without fences (phase 6)")
     if keep_dir:
         shutil.copy(trace, os.path.join(keep_dir, "pairhmm_trace.json"))
+    return {"command_s": cmd_s, "untraced_command_s": untraced["pairhmm"],
+            "device_spans": n_ph, "fenced_kernel_share": share}
 
-    # kill and resume: a BED that cuts the contig into FLAG_REGIONS regions
+
+def _flags_regions_run(root, workdir, crams, fai, want, env, name: str,
+                       extra: list) -> dict:
+    """One cohortdepth run over FLAG_REGIONS regions (``co_regions.bed``)
+    with ``extra`` flags → its rans launches and checkpoint counters, or
+    for the killed run the columns its journal committed."""
     bed = os.path.join(workdir, "co_regions.bed")
-    step = CO_LEN // FLAG_REGIONS
-    with open(bed, "w") as fh:
-        for lo in range(0, CO_LEN, step):
-            fh.write(f"chr1\t{lo}\t{min(lo + step, CO_LEN)}\n")
-    base = ["cohortdepth", "--fai", fai, "-w", str(CO_WINDOW), "-b", bed,
-            "--decode-device"]
+    report = os.path.join(workdir, f"co_{name}.json")
+    r, wall = _run_cli(root, ["--metrics-out", report, "cohortdepth",
+                              "--fai", fai, "-w", str(CO_WINDOW), "-b", bed,
+                              "--decode-device", *extra, *crams], env)
+    if "--inject-faults" in extra:
+        assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+        ck = extra[extra.index("--checkpoint-dir") + 1]
+        with open(os.path.join(ck, "journal.jsonl")) as fh:
+            committed = sum(1 for _ in fh)
+        log(f"cohortdepth --checkpoint-dir --inject-faults {FLAG_KILL}: "
+            f"killed by SIGKILL after {committed} committed columns")
+        return {"wall_s": wall, "committed": committed}
+    assert r.returncode == 0, r.stderr[-4000:]
+    _same_bytes(f"cohortdepth -b ({name}) matrix", r.stdout, want)
+    rep, cmd_s, _ = read_manifest(report, "cohortdepth")
+    c = rep["metrics"]["counters"]
+    run = {"command_s": cmd_s, "rans": rep["kernel_launches"]["rans"],
+           "resumed": c.get("checkpoint.shards_resumed_total", 0),
+           "written": c.get("checkpoint.shards_written_total", 0)}
+    log(f"cohortdepth -b {FLAG_REGIONS} regions ({name}): matrix "
+        f"byte-identical to the oracle; rans launches {run['rans']}, "
+        f"columns resumed {run['resumed']}, written {run['written']}; "
+        f"command {cmd_s:.3f} s")
+    return run
+
+
+def _flags_kill_resume(root, workdir, crams, fai, want, env) -> dict:
+    """The checkpointed cohortdepth over FLAG_REGIONS regions killed by
+    FLAG_KILL, resumed, and resumed again over the complete store."""
     ck = os.path.join(workdir, "co_ck")
-    runs = {}
-    for name, extra in (("uninterrupted", []),
-                        ("killed", ["--checkpoint-dir", ck,
-                                    "--inject-faults", FLAG_KILL]),
-                        ("resumed", ["--checkpoint-dir", ck, "--resume"]),
-                        ("complete", ["--checkpoint-dir", ck, "--resume"])):
-        report = os.path.join(workdir, f"co_{name}.json")
-        r, wall = _run_cli(root, ["--metrics-out", report, *base, *extra,
-                                  *crams], env)
-        if name == "killed":
-            assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
-            with open(os.path.join(ck, "journal.jsonl")) as fh:
-                committed = sum(1 for _ in fh)
-            runs[name] = {"wall_s": wall, "committed": committed}
-            log(f"cohortdepth --checkpoint-dir --inject-faults {FLAG_KILL}: "
-                f"killed by SIGKILL after {committed} committed columns")
-            continue
-        assert r.returncode == 0, r.stderr[-4000:]
-        _same_bytes(f"cohortdepth -b ({name}) matrix", r.stdout, want)
-        rep, cmd_s, _ = read_manifest(report, "cohortdepth")
-        c = rep["metrics"]["counters"]
-        runs[name] = {"command_s": cmd_s,
-                      "rans": rep["kernel_launches"]["rans"],
-                      "resumed": c.get("checkpoint.shards_resumed_total", 0),
-                      "written": c.get("checkpoint.shards_written_total", 0)}
-        log(f"cohortdepth -b {FLAG_REGIONS} regions ({name}): matrix "
-            f"byte-identical to the oracle; rans launches "
-            f"{runs[name]['rans']}, columns resumed "
-            f"{runs[name]['resumed']}, written {runs[name]['written']}; "
-            f"command {cmd_s:.3f} s")
-    assert 0 < runs["killed"]["committed"] < FLAG_REGIONS * CO_SAMPLES
-    assert 0 < runs["resumed"]["rans"] < runs["uninterrupted"]["rans"], runs
-    assert runs["resumed"]["resumed"] == runs["killed"]["committed"], runs
-    assert runs["complete"]["rans"] == 0, runs
-    assert runs["complete"]["resumed"] == FLAG_REGIONS * CO_SAMPLES, runs
-    out["kill_resume"] = runs
-    return out
+    return {name: _flags_regions_run(root, workdir, crams, fai, want, env,
+                                     name, extra)
+            for name, extra in (
+                ("killed", ["--checkpoint-dir", ck, "--inject-faults",
+                            FLAG_KILL]),
+                ("resumed", ["--checkpoint-dir", ck, "--resume"]),
+                ("complete", ["--checkpoint-dir", ck, "--resume"]))}
 
 
 # ---- EM and cnv phases ------------------------------------------------
@@ -2345,15 +2453,23 @@ def load_em_oracle(root: str):
 def em_matrix(rng, windows: int = None, samples: int = None) -> np.ndarray:
     """int16 (windows, samples) window means (EM_WINDOWS x EM_SAMPLES by
     default): per-sample coverage 20-40x times a per-window bias, Poisson
-    counts; het deletions, homozygous deletions and duplications planted
-    in blocks of samples."""
+    counts (drawn on the card, from a seed taken from ``rng``); het
+    deletions, homozygous deletions and duplications planted in blocks of
+    samples."""
+    import torch
+
     windows = windows or EM_WINDOWS
     samples = samples or EM_SAMPLES
     cov = rng.uniform(20, 40, samples)
     bias = rng.gamma(50, 1 / 50, windows)
+    gen = torch.Generator(device="cuda").manual_seed(
+        int(rng.integers(2 ** 31)))
+    cov_d = torch.from_numpy(cov).cuda()
     m = np.empty((windows, samples), np.int16)
     for lo in range(0, windows, 4096):
-        m[lo:lo + 4096] = rng.poisson(bias[lo:lo + 4096, None] * cov)
+        rate = torch.from_numpy(bias[lo:lo + 4096]).cuda()[:, None] * cov_d
+        m[lo:lo + 4096] = torch.poisson(rate, generator=gen).to(
+            torch.int16).cpu().numpy()
     for k in range(40):
         w = int(rng.integers(0, windows - 300))
         n = int(rng.integers(20, 300))
@@ -2364,12 +2480,13 @@ def em_matrix(rng, windows: int = None, samples: int = None) -> np.ndarray:
     return m
 
 
-def em_phase(root: str, dev) -> dict:
+def em_phase(root: str, dev) -> tuple:
     """The EM at cohort width on the card: the int16 matrix through
     call_cnvs's normalisation (sample_medians) and _batched_em (four
     16,384-window f64 chunks); λ of EM_CHECK windows against the oracle
     (rtol = atol = 1e-9), their CN equal to its CN clamped at 8; cn.mops
-    on the first chunk against the port's CPU path on the same rows."""
+    on the first chunk against the port's CPU path on the same rows.
+    → (results, (depths, med, medmed, λ, CN)) for phase 21's split."""
     import torch
 
     from goleft_tpu_torch.commands import emdepth_cmd as ec
@@ -2465,7 +2582,7 @@ def em_phase(root: str, dev) -> dict:
             "window_samples_per_s": cells / em_wall,
             "peak_bytes": peak, "lambda_max_abs_err": worst,
             "mops_chunk_ms": mops_ms, "mops_peak_bytes": mops_peak,
-            "mops_aik_max_abs_err": mops_err}
+            "mops_aik_max_abs_err": mops_err}, (depths, med, medmed, lam, cn)
 
 
 def cnv_fabricate(workdir: str, rng):
@@ -2517,9 +2634,10 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
     bytes, equal to the port's ``run_cnv(device="cpu")``, both planted
     events called; the ``cohortdepth`` window-mean matrix of the same
     BAMs under ``--engine device`` byte-identical to the hybrid
-    engine's (the depth kernel checked exactly at cnv's shapes); then
-    ``emdepth --mops-out --gain-out`` on that matrix, on the card and
-    on the CPU."""
+    engine's (the depth kernel checked exactly at cnv's shapes; the
+    default engine's and the hybrid engine's runs side by side, after the
+    device engine's); then ``emdepth --mops-out --gain-out`` on that
+    matrix, on the card and on the CPU."""
     import io
 
     from goleft_tpu_torch.commands.cnv import run_cnv
@@ -2531,8 +2649,8 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
         f"bp contig in {time.perf_counter() - t0:.1f} s")
     env = dict(os.environ, PYTHONPATH=root)
     env.pop("GOLEFT_TPU_FAULTS", None)
-    runs, outs = {}, {}
-    for name, extra in (("device", ["--engine", "device"]), ("default", [])):
+
+    def cnv_run(name, extra):
         report = os.path.join(workdir, f"cnv_{name}.json")
         vcf = os.path.join(workdir, f"cnv_{name}.vcf")
         mat = os.path.join(workdir, f"cnv_{name}.cn.tsv")
@@ -2544,23 +2662,42 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
                                  f"{r.stderr[-4000:]}")
         rep, cmd_s, stages = read_manifest(report, "cnv")
         with open(vcf) as fh, open(mat) as mh:
-            outs[name] = (r.stdout, fh.read(), mh.read())
-        runs[name] = {"wall_s": wall, "command_s": cmd_s,
-                      "import_s": rep["import_seconds"],
-                      "stage_seconds": stages,
-                      "launches": rep["kernel_launches"],
-                      "native_io": rep["native_io"],
-                      "bases_per_s": CNV_SAMPLES * CNV_LEN / cmd_s}
+            out = (r.stdout, fh.read(), mh.read())
+        run = {"wall_s": wall, "command_s": cmd_s,
+               "import_s": rep["import_seconds"], "stage_seconds": stages,
+               "launches": rep["kernel_launches"],
+               "native_io": rep["native_io"],
+               "bases_per_s": CNV_SAMPLES * CNV_LEN / cmd_s}
         log(f"cnv ({name} engine): process wall {wall:.3f} s, command "
             f"{cmd_s:.3f} s, import {rep['import_seconds']:.3f} s; "
             f"{CNV_SAMPLES * CNV_LEN / cmd_s / 1e6:.3f} Mbases/s "
             f"({CNV_SAMPLES} samples x {CNV_LEN} bp); launches "
             f"{rep['kernel_launches']}; stage seconds: "
             + ", ".join(f"{k} {v:.3f}" for k, v in sorted(stages.items())))
-    assert runs["device"]["launches"]["depth"] == CNV_SAMPLES, runs["device"]
-    # with the native library, auto picks the hybrid engine (no kernel)
-    assert runs["default"]["native_io"], runs["default"]
-    assert runs["default"]["launches"]["depth"] == 0, runs["default"]
+        return run, out
+
+    def cohortdepth_run(name):
+        report = os.path.join(workdir, f"cohortdepth_{name}.json")
+        r, wall = _run_cli(root, ["--metrics-out", report, "cohortdepth",
+                                  "-w", str(CNV_WINDOW), "-r", fa,
+                                  "--engine", name, *bams], env)
+        if r.returncode != 0:
+            raise AssertionError(f"cohortdepth ({name}) failed "
+                                 f"({r.returncode}):\n{r.stderr[-4000:]}")
+        launches = read_manifest(
+            report, "cohortdepth")[0]["kernel_launches"]["depth"]
+        return r.stdout, wall, launches
+
+    # the device engine's runs alone (phase 21 compares their walls with
+    # two processes'); then the default engine's cnv and the hybrid
+    # cohortdepth side by side, beside the CPU path here
+    runs, outs, mats, cd_launches = {}, {}, {}, {}
+    runs["device"], outs["device"] = cnv_run("device",
+                                             ["--engine", "device"])
+    mats["device"], cd_device_wall, cd_launches["device"] = \
+        cohortdepth_run("device")
+    default = _BG.submit(cnv_run, "default", [])
+    hybrid = _BG.submit(cohortdepth_run, "hybrid")
     buf = io.StringIO()
     vcf = os.path.join(workdir, "cnv_cpu.vcf")
     mat = os.path.join(workdir, "cnv_cpu.cn.tsv")
@@ -2570,6 +2707,12 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
     cpu_s = time.perf_counter() - t0
     with open(vcf) as fh, open(mat) as mh:
         outs["cpu"] = (buf.getvalue(), fh.read(), mh.read())
+    runs["default"], outs["default"] = default.result()
+    mats["hybrid"], _, cd_launches["hybrid"] = hybrid.result()
+    assert runs["device"]["launches"]["depth"] == CNV_SAMPLES, runs["device"]
+    # with the native library, auto picks the hybrid engine (no kernel)
+    assert runs["default"]["native_io"], runs["default"]
+    assert runs["default"]["launches"]["depth"] == 0, runs["default"]
     for name in ("device", "default"):
         for what, got, want in zip(("calls", "VCF", "CN matrix"),
                                    outs[name], outs["cpu"]):
@@ -2589,18 +2732,6 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
                                                f"cnv{CNV_DUP[2]}")))
 
     matrix = os.path.join(workdir, "cnv.matrix.tsv")
-    mats, cd_launches = {}, {}
-    for name in ("hybrid", "device"):
-        report = os.path.join(workdir, f"cohortdepth_{name}.json")
-        r, _ = _run_cli(root, ["--metrics-out", report, "cohortdepth",
-                               "-w", str(CNV_WINDOW), "-r", fa,
-                               "--engine", name, *bams], env)
-        if r.returncode != 0:
-            raise AssertionError(f"cohortdepth ({name}) failed "
-                                 f"({r.returncode}):\n{r.stderr[-4000:]}")
-        mats[name] = r.stdout
-        cd_launches[name] = read_manifest(
-            report, "cohortdepth")[0]["kernel_launches"]["depth"]
     assert cd_launches == {"hybrid": 0, "device": CNV_SAMPLES}, cd_launches
     _diff_rows("cohortdepth window means (depth kernel against the hybrid "
                "engine)", mats["device"], mats["hybrid"])
@@ -2637,6 +2768,9 @@ def cnv_e2e_phase(root: str, workdir: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(em_stages.items())))
     return {"runs": runs, "cpu_s": cpu_s, "calls": len(calls),
             "bams": bams, "fa": fa, "cohortdepth_launches": cd_launches,
+            "single": {"cohortdepth": mats["device"], "cnv": outs["device"],
+                       "cohortdepth_wall_s": cd_device_wall,
+                       "cnv_wall_s": runs["device"]["wall_s"]},
             "emdepth": {"wall_s": wall, "command_s": em_s,
                         "stage_seconds": em_stages,
                         "window_samples_per_s":
@@ -2670,7 +2804,7 @@ NORM_CYCLES_PER_BIN = 28
 #: run A (the reference's headline: 30 samples, reports), run B (cohort
 #: scale, -n), the kill-and-resume runs (30 samples, -n)
 IC_HEADLINE = 30
-IC_SAMPLES = 150
+IC_SAMPLES = 100
 IC_KILL = "shard:after=5:kill"
 #: planted on the fabricated cohort: three latent factors a sample
 #: (normal, these standard deviations of relative depth), each a sine wave
@@ -2875,8 +3009,8 @@ def norm_kernel_phase(dev) -> dict:
     NORM_EDGES and on the first 32, 500 and 2,504 samples of the main case
     (2,504 samples x 15,195 bins, the scalars of the whole cohort: each
     width is a chunk of the main path); the kernel's time at each width
-    (CUDA events, median of 20), the plain version's at 2,504 (median of
-    3), both bounds and ptxas's report."""
+    (CUDA events, median of 20), the plain version's at 2,504 (one call),
+    both bounds and ptxas's report."""
     import torch
 
     from goleft_tpu_torch.ops import norm_kernel as nk
@@ -2910,7 +3044,13 @@ def norm_kernel_phase(dev) -> dict:
     for n in NORM_TIMED_SAMPLES:
         t = on_card((d[:n], ln[:n], m, skip))
         got = nk.norm_scan(*t)
+        # the plain version's one call, timed by CUDA events (the widths
+        # before have warmed it up)
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
         want = nk.apply_normalization_plain(*t)
+        ev1.record()
         torch.cuda.synchronize()
         assert _bits_equal(got, want), f"indexcov_norm at {n} x {b}"
         assert torch.isfinite(got).all()
@@ -2927,8 +3067,7 @@ def norm_kernel_phase(dev) -> dict:
              "max_abs_err": float((got - want).abs().max()),
              "plan": nk.launch_plan(n, b)}
         if n == NORM_SAMPLES:
-            w["plain_ms"] = cuda_median_ms(
-                lambda: nk.apply_normalization_plain(*t), reps=3)
+            w["plain_ms"] = ev0.elapsed_time(ev1)
         widths[n] = w
         log(f"indexcov_norm at {n} samples x {b} bins: bitwise equal to "
             f"its plain version; kernel {ms:.4f} ms (CUDA events, median "
@@ -2939,7 +3078,7 @@ def norm_kernel_phase(dev) -> dict:
             f"{w['chain_bound_ms']:.4f} ms ({b} bins x "
             f"{NORM_CYCLES_PER_BIN} cycles); library: none"
             + (f"; plain version on the card {w['plain_ms']:.1f} ms "
-               "(median of 3)" if "plain_ms" in w else ""))
+               "(one call)" if "plain_ms" in w else ""))
     main = widths[NORM_SAMPLES]
     log(f"indexcov_norm: bitwise on {len(NORM_EDGES)} edge cases; main "
         f"case ({NORM_SAMPLES} x {b}, ragged) fabricated in {fab_s:.1f} s")
@@ -3257,6 +3396,30 @@ def _ic_bytes(outdir: str) -> dict:
             for f in sorted(os.listdir(outdir))}
 
 
+def _ic_kill_resume(root, d, fai, head, env) -> dict:
+    """indexcov -n on ``head`` under --checkpoint-dir, killed by IC_KILL,
+    resumed, and resumed again over the complete store → {run: (its
+    summary, its output files' bytes)}."""
+    ck = os.path.join(d, "ck")
+    out_k = os.path.join(d, "K", "out")
+    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "indexcov", "-d",
+                           out_k, "--fai", fai, "-n", "--no-html",
+                           "--checkpoint-dir", ck, *head], env)
+    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+    out = {}
+    for i, name in enumerate(("resumed", "resumed again")):
+        rep_path = os.path.join(d, f"K{i}.json")
+        r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov",
+                                  "-d", out_k, "--fai", fai, "-n",
+                                  "--no-html", "--checkpoint-dir", ck,
+                                  "--resume", *head], env)
+        assert r.returncode == 0, r.stderr[-4000:]
+        rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+        out[name] = (_ic_summary(f"run C {name}", rep, cmd_s, stages, wall,
+                                 len(head)), _ic_bytes(out_k))
+    return out
+
+
 def indexcov_phase(root: str, workdir: str):
     """``python -m goleft_tpu_torch indexcov`` on fabricated hg38 .bai
     files in fresh processes (launch counts from --metrics-out) →
@@ -3305,6 +3468,30 @@ def indexcov_phase(root: str, workdir: str):
     runs["A"] = _ic_summary("run A (default flags, --fai)", rep, cmd_s,
                             stages, wall, len(head))
     assert runs["A"]["launches"] == 0
+
+    # run B: cohort scale, -n
+    out_b = os.path.join(d, "B", "card", "out")
+    rep_path = os.path.join(d, "B.json")
+    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
+                              out_b, "--fai", fai, "-n", "--no-html",
+                              *bais], env)
+    if r.returncode != 0:
+        raise AssertionError(f"indexcov run B failed ({r.returncode}):\n"
+                             f"{r.stderr[-4000:]}")
+    rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
+    runs["B"] = _ic_summary("run B (-n --no-html)", rep, cmd_s, stages,
+                            wall, len(bais))
+    assert runs["B"]["launches"] == 22, runs["B"]["launches"]
+
+    # kill and resume (30 samples, -n, under --checkpoint-dir) and the
+    # uninterrupted run they must equal, beside the checks of runs A and B
+    out_c = os.path.join(d, "C", "out")
+    rep_path = os.path.join(d, "C.json")
+    run_c = _BG.submit(_run_cli, root, [
+        "--metrics-out", rep_path, "indexcov", "-d", out_c, "--fai", fai,
+        "-n", "--no-html", *head], env)
+    killed = _BG.submit(_ic_kill_resume, root, d, fai, head, env)
+
     t0 = time.perf_counter()
     oracle = indexcov_oracle(head)
     import gzip
@@ -3352,19 +3539,6 @@ def indexcov_phase(root: str, workdir: str):
     runs["A"].update(cpu_s=cpu_s, files=same["files"], png=same["png"],
                      pc_err=pc_err, pca_rtol=tols)
 
-    # run B: cohort scale, -n
-    out_b = os.path.join(d, "B", "card", "out")
-    rep_path = os.path.join(d, "B.json")
-    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
-                              out_b, "--fai", fai, "-n", "--no-html",
-                              *bais], env)
-    if r.returncode != 0:
-        raise AssertionError(f"indexcov run B failed ({r.returncode}):\n"
-                             f"{r.stderr[-4000:]}")
-    rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
-    runs["B"] = _ic_summary("run B (-n --no-html)", rep, cmd_s, stages,
-                            wall, len(bais))
-    assert runs["B"]["launches"] == 22, runs["B"]["launches"]
     out_c21 = os.path.join(d, "B", "cpu", "out")
     t0 = time.perf_counter()
     run_indexcov(bais, out_c21, fai=fai, chrom="chr21",
@@ -3383,14 +3557,7 @@ def indexcov_phase(root: str, workdir: str):
         f"path's -c chr21 -n ({c21_s:.1f} s); bed.gz {bed_b / 1e6:.1f} MB")
     runs["B"].update(cpu_chr21_s=c21_s, bed_gz_bytes=bed_b)
 
-    # kill and resume: 30 samples, -n, under --checkpoint-dir
-    ck = os.path.join(d, "ck")
-    out_c = os.path.join(d, "C", "out")
-    out_k = os.path.join(d, "K", "out")
-    rep_path = os.path.join(d, "C.json")
-    r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov", "-d",
-                              out_c, "--fai", fai, "-n", "--no-html",
-                              *head], env)
+    r, wall = run_c.result()
     assert r.returncode == 0, r.stderr[-4000:]
     rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
     runs["C"] = _ic_summary("run C (-n --no-html, uninterrupted)", rep,
@@ -3398,26 +3565,13 @@ def indexcov_phase(root: str, workdir: str):
     full = runs["C"]["launches"]
     assert full == 22, full
     want = _ic_bytes(out_c)
-    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "indexcov", "-d",
-                           out_k, "--fai", fai, "-n", "--no-html",
-                           "--checkpoint-dir", ck, *head], env)
-    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
-    launches = []
-    for name in ("resumed", "resumed again"):
-        rep_path = os.path.join(d, f"K{len(launches)}.json")
-        r, wall = _run_cli(root, ["--metrics-out", rep_path, "indexcov",
-                                  "-d", out_k, "--fai", fai, "-n",
-                                  "--no-html", "--checkpoint-dir", ck,
-                                  "--resume", *head], env)
-        assert r.returncode == 0, r.stderr[-4000:]
-        rep, cmd_s, stages = read_manifest(rep_path, "indexcov")
-        runs[name] = _ic_summary(f"run C {name}", rep, cmd_s, stages, wall,
-                                 len(head))
-        launches.append(runs[name]["launches"])
-        got = _ic_bytes(out_k)
+    for name, (summary, got) in killed.result().items():
+        runs[name] = summary
         assert sorted(got) == sorted(want), (sorted(got), sorted(want))
         for f in want:
             assert got[f] == want[f], f"{name}: {f} differs"
+    launches = [runs[name]["launches"]
+                for name in ("resumed", "resumed again")]
     assert 0 < launches[0] < full and launches[1] == 0, launches
     log(f"kill and resume: killed by {IC_KILL} (rc -9), resumed with "
         f"{launches[0]} indexcov_norm launches, then {launches[1]} over "
@@ -3430,10 +3584,10 @@ def indexcov_phase(root: str, workdir: str):
 
 # ---- cohortscan and multidepth phases ---------------------------------
 
-#: cohortscan's sample chunks: phase 14's 150 samples in 4 chunks
-CS_CHUNK = 38
+#: cohortscan's sample chunks: phase 14's 100 samples in 4 chunks
+CS_CHUNK = 25
 #: the kill and append runs: the first CS_FIRST samples, then all of them
-CS_FIRST = 135
+CS_FIRST = 90
 #: --pca sharded's power iterations (cohort/pca.py's default)
 CS_ITERS = 32
 CS_STAGES = ("index_load", "spill", "norm_scalars", "normalize",
@@ -3544,6 +3698,39 @@ def _journal_blocks(ck: str) -> int:
         return sum(1 for line in fh if line.strip() and '"k"' in line)
 
 
+def _cs_kill_append(root, d, bais, base, ck, out_a, env) -> tuple:
+    """cohortscan on the first CS_FIRST samples under --checkpoint-dir
+    ``ck``, killed by IC_KILL and resumed, then all of ``bais`` appended
+    under --resume with --pca sharded → (the QC blocks committed at the
+    kill, the resumed run's summary, the appending run's)."""
+    n, chroms = len(bais), len(HG38)
+    first = bais[:CS_FIRST]
+    ck_args = ["-d", out_a, *base, "--checkpoint-dir", ck]
+    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "cohortscan",
+                           *ck_args, *first], env)
+    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
+    # the kill fires on the 5th Step; Steps go chromosome by chromosome,
+    # chunk by chunk, and a chromosome's chunks are the same everywhere
+    sizes = [min(CS_CHUNK, CS_FIRST - lo)
+             for lo in range(0, CS_FIRST, CS_CHUNK)]
+    steps = [sz for _ in HG38 for sz in sizes]
+    kill_at = int(IC_KILL.split("after=")[1].split(":")[0])
+    committed = _journal_blocks(ck)
+    assert committed == sum(steps[:kill_at - 1]), committed
+    run_k = _cs_run(root, d, "K", f"the first {CS_FIRST}, resumed "
+                    f"after {IC_KILL}", [*ck_args, "--resume", *first],
+                    env, CS_FIRST)
+    assert (run_k["computed"], run_k["resumed"]) == \
+        (CS_FIRST * chroms - committed, committed), run_k
+    run_a = _cs_run(root, d, "A", f"all {n}, appended under --resume "
+                    "with --pca sharded",
+                    [*ck_args, "--resume", "--pca", "sharded", *bais],
+                    env, n)
+    assert (run_a["computed"], run_a["resumed"]) == \
+        ((n - CS_FIRST) * chroms, CS_FIRST * chroms), run_a
+    return committed, run_k, run_a
+
+
 def cohortscan_phase(root: str, workdir: str, bais, fai, out_b, dev) -> dict:
     """``python -m goleft_tpu_torch cohortscan`` on phase 14's .bai files
     in fresh processes, chunks of CS_CHUNK samples: run S with -n (one
@@ -3579,6 +3766,13 @@ def cohortscan_phase(root: str, workdir: str, bais, fai, out_b, dev) -> dict:
         f"run B), the .ped {ped}; {runs['S']['launches']} indexcov_norm "
         f"launches = {autosomes} autosomes x {n_chunks} chunks")
 
+    # the first CS_FIRST samples killed, resumed, then all of them
+    # appended with --pca sharded, beside run P
+    ck = os.path.join(d, "ck")
+    out_a = os.path.join(d, "A", "out")
+    chain = _BG.submit(_cs_kill_append, root, d, bais, base, ck, out_a,
+                       env)
+
     # run P: without -n, the exact PCA: the bytes the appended store must
     # give; its PCs against the float64 oracle
     out_p = os.path.join(d, "P", "out")
@@ -3604,35 +3798,7 @@ def cohortscan_phase(root: str, workdir: str, bais, fai, out_b, dev) -> dict:
         + ", ".join(f"{t:.2e}" for t in tol_exact) + "; singular values "
         + ", ".join(f"{v:.6g}" for v in sv[:k + 1]))
 
-    # the first CS_FIRST samples killed, resumed, then all of them
-    # appended with --pca sharded
-    ck = os.path.join(d, "ck")
-    out_a = os.path.join(d, "A", "out")
-    first = bais[:CS_FIRST]
-    ck_args = ["-d", out_a, *base, "--checkpoint-dir", ck]
-    r, _ = _run_cli(root, ["--inject-faults", IC_KILL, "cohortscan",
-                           *ck_args, *first], env)
-    assert r.returncode == -9, (r.returncode, r.stderr[-2000:])
-    # the kill fires on the 5th Step; Steps go chromosome by chromosome,
-    # chunk by chunk, and a chromosome's chunks are the same everywhere
-    sizes = [min(CS_CHUNK, CS_FIRST - lo)
-             for lo in range(0, CS_FIRST, CS_CHUNK)]
-    steps = [sz for _ in HG38 for sz in sizes]
-    kill_at = int(IC_KILL.split("after=")[1].split(":")[0])
-    committed = _journal_blocks(ck)
-    assert committed == sum(steps[:kill_at - 1]), committed
-    runs["K"] = _cs_run(root, d, "K", f"the first {CS_FIRST}, resumed "
-                        f"after {IC_KILL}", [*ck_args, "--resume", *first],
-                        env, CS_FIRST)
-    assert (runs["K"]["computed"], runs["K"]["resumed"]) == \
-        (CS_FIRST * chroms - committed, committed), runs["K"]
-    runs["A"] = _cs_run(root, d, "A", f"all {n}, appended under --resume "
-                        "with --pca sharded",
-                        [*ck_args, "--resume", "--pca", "sharded", *bais],
-                        env, n)
-    assert (runs["A"]["computed"], runs["A"]["resumed"]) == \
-        ((n - CS_FIRST) * chroms, CS_FIRST * chroms), runs["A"]
-
+    committed, runs["K"], runs["A"] = chain.result()
     from goleft_tpu_torch.cohort.manifest import CohortManifest
 
     man = CohortManifest.load(os.path.join(out_a,
@@ -4908,11 +5074,414 @@ def fleet_phase(root: str, workdir: str, fx: dict, sv: dict) -> dict:
     return out
 
 
+# ---- phase 21: multi-device (processes over Gloo, the split) -----------
+
+MD_SAMPLES = 8  # phase 12's cohort size, and the sharded depth's samples
+MD_SHARDS = 2  # the (1, 2) grid: one 10 Mb shard a rank
+MD_CHUNK_SHARD = 2_500_000  # run_prefetched_cohort: 4 chunks of 2 x 2.5 Mb
+MD_TIMEOUT = 600  # the bound of each process of the phase
+MD_PCA = (600, 15_195, 5, 127)  # samples, bins, k, rows a chunk
+
+
+def md_segments(seed: int = 2121):
+    """MD_SAMPLES samples over MD_SHARDS x 10 Mb: for each sample and
+    shard, :func:`shard_segments` moved onto that shard (endpoints
+    clipped at 0: the sharded layout holds no coordinate below it),
+    padded with keep=False → global (S, n) int32, int32, bool."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(MD_SAMPLES):
+        parts = []
+        for q in range(MD_SHARDS):
+            w0, (s, e, k), _ = shard_segments(rng)
+            off = q * SHARD - w0
+            parts.append((np.maximum(s.astype(np.int64) + off, 0),
+                          np.maximum(e.astype(np.int64) + off, 0), k))
+        rows.append(tuple(np.concatenate(c) for c in zip(*parts)))
+    n = max(len(r[0]) for r in rows)
+    st = np.zeros((MD_SAMPLES, n), np.int32)
+    en = np.zeros((MD_SAMPLES, n), np.int32)
+    kp = np.zeros((MD_SAMPLES, n), bool)
+    for i, (s, e, k) in enumerate(rows):
+        st[i, :len(s)], en[i, :len(s)], kp[i, :len(s)] = s, e, k
+    return st, en, kp
+
+
+def md_chunk_decoder(st, en, kp, chunk_len: int):
+    """decode_chunk for run_prefetched_cohort: chunk ci's segments (a
+    start or an end in [ci * chunk_len, (ci + 1) * chunk_len)),
+    chunk-relative, each sample padded with keep=False."""
+    def decode(ci):
+        lo, hi = ci * chunk_len, (ci + 1) * chunk_len
+        sel = [kp[i] & (((st[i] >= lo) & (st[i] < hi))
+                        | ((en[i] >= lo) & (en[i] < hi)))
+               for i in range(len(st))]
+        n = max(1, max(int(m.sum()) for m in sel))
+        s = np.zeros((len(st), n), np.int32)
+        e = np.zeros((len(st), n), np.int32)
+        k = np.zeros((len(st), n), bool)
+        for i, m in enumerate(sel):
+            c = int(m.sum())
+            s[i, :c], e[i, :c], k[i, :c] = st[i][m] - lo, en[i][m] - lo, True
+        return s, e, k
+    return decode
+
+
+_MD_WORKER = r"""
+import json, os, sys, time
+t_start = time.perf_counter()
+root, out_dir = sys.argv[1], sys.argv[2]
+sys.path.insert(0, root)
+import numpy as np
+import torch
+import chip_smoke as cs
+from goleft_tpu_torch.ops import depth_kernel as dk
+from goleft_tpu_torch.parallel.mesh import make_mesh, world
+from goleft_tpu_torch.parallel.prefetch import run_prefetched_cohort
+from goleft_tpu_torch.parallel.sharded_coverage import (
+    NO_CAP, partition_segments, sharded_depth_fn)
+from goleft_tpu_torch.utils.profiling import StageTimer
+import_s = time.perf_counter() - t_start
+size, rank = world()
+assert size == 2, size
+mesh = make_mesh(prefer_seq=2)
+assert mesh.shape == {"data": 1, "seq": 2} and mesh.device.type == "cuda"
+t0 = time.perf_counter()
+st, en, kp = cs.md_segments()
+seg = partition_segments(st, en, kp, cs.MD_SHARDS, cs.SHARD)
+prep_s = time.perf_counter() - t0
+L, W = cs.MD_SHARDS * cs.SHARD, cs.WINDOW
+rep = {"rank": rank, "import_s": import_s, "prep_s": prep_s,
+       "segments": int(kp.sum()), "b": {}, "c": {}}
+dev = mesh.device
+for mode in ("all_gather", "scan"):
+    fn = sharded_depth_fn(mesh, cs.SHARD, W, carry_mode=mode)
+    blocks = fn.put(*seg)
+    torch.cuda.synchronize()
+    dk.LAUNCHES["depth"] = 0
+    t0 = time.perf_counter()
+    depth, wsums = fn.local(*blocks)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = dk.LAUNCHES["depth"]
+    totals = depth[:, -1].cpu()
+    carry_ms = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        fn.carry(totals)
+        carry_ms.append((time.perf_counter() - t0) * 1e3)
+    d, w = fn.assemble(depth, wsums)
+    assert d.shape == (cs.MD_SAMPLES, L) and w.shape == (cs.MD_SAMPLES, L // W)
+    if rank == 0:
+        tp = []
+        for i in range(cs.MD_SAMPLES):
+            t = [torch.from_numpy(x[i]).to(dev) for x in (st, en, kp)]
+            t0 = time.perf_counter()
+            sums, _, _, pd = dk.fused_depth_plain(*t, 0, 0, L, NO_CAP, 1, 0,
+                                                  L, W)
+            torch.cuda.synchronize()
+            tp.append(time.perf_counter() - t0)
+            if not (np.array_equal(pd.cpu().numpy(), d[i])
+                    and sums.cpu().numpy().tobytes() == w[i].tobytes()):
+                raise AssertionError(f"sharded depth ({mode}): sample {i} "
+                                     "differs from the plain version")
+        assert int(d.min()) >= 0 and int(d.max()) > cs.CAP  # uncapped
+        rep["b"][mode + "_plain_s"] = sum(tp)
+    local_ms = cs.cuda_median_ms(lambda: dk.fused_depth_batch(
+        blocks[0].reshape(-1), blocks[1].reshape(-1),
+        [i * blocks[0].shape[1] for i in range(blocks[0].shape[0] + 1)],
+        rank * cs.SHARD, rank * cs.SHARD, (rank + 1) * cs.SHARD, NO_CAP, 1,
+        0, cs.SHARD, W, keep=blocks[2].reshape(-1), dense=True), reps=5)
+    rep["b"][mode] = {"launches": launches, "call_s": call_s,
+                      "local_ms": local_ms,
+                      "carry_ms": float(np.median(carry_ms)),
+                      "entries": int(blocks[0].numel())}
+    del depth, wsums, blocks, d
+    torch.cuda.empty_cache()
+chunk_len = cs.MD_SHARDS * cs.MD_CHUNK_SHARD
+decode = cs.md_chunk_decoder(st, en, kp, chunk_len)
+outs = {}
+for pd_ in (0, 2):
+    tm = StageTimer()
+    dk.LAUNCHES["depth"] = 0
+    t0 = time.perf_counter()
+    out = run_prefetched_cohort(mesh, cs.MD_CHUNK_SHARD, W,
+                                list(range(L // chunk_len)), decode,
+                                cs.MD_SAMPLES, prefetch_depth=pd_,
+                                timer=tm, keep_depth=False)
+    rep["c"][str(pd_)] = {"wall_s": time.perf_counter() - t0,
+                          "launches": dk.LAUNCHES["depth"],
+                          "stages": tm.as_dict()}
+    outs[pd_] = out
+for k in ("wmeans", "lambdas", "cn", "carry"):
+    assert outs[0][k].tobytes() == outs[2][k].tobytes(), k
+if rank == 0:
+    np.savez(os.path.join(out_dir, "md_c.npz"), **outs[2])
+rep["wall_s"] = time.perf_counter() - t_start
+with open(os.path.join(out_dir, f"md_rank{rank}.json"), "w") as fh:
+    json.dump(rep, fh)
+print("MD_WORKER_OK", rank, flush=True)
+"""
+
+
+def _md_env(root: str, port: int, rank: int) -> dict:
+    env = dict(os.environ, PYTHONPATH=root,
+               GOLEFT_TPU_COORDINATOR=f"127.0.0.1:{port}",
+               GOLEFT_TPU_NUM_PROCESSES="2", GOLEFT_TPU_PROCESS_ID=str(rank))
+    env.pop("GOLEFT_TPU_FAULTS", None)
+    return env
+
+
+def _md_pair(root: str, argv_of) -> list:
+    """Two processes of one Gloo world on the card, ``argv_of(rank)``
+    each → [(returncode, stdout, stderr, wall seconds)] by rank; both
+    are killed when one passes MD_TIMEOUT."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv_of(r), cwd=root, env=_md_env(root, port,
+                                                               r),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=max(
+                1.0, MD_TIMEOUT - (time.perf_counter() - t0)))
+            outs.append((p.returncode, out, err, time.perf_counter() - t0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (rc, _, err, _) in enumerate(outs):
+        if rc != 0:
+            raise AssertionError(f"process {r} of 2 failed ({rc}):\n"
+                                 f"{err[-4000:]}")
+    return outs
+
+
+def multi_device_phase(root: str, workdir: str, dev, cnv: dict,
+                       em_fx: tuple) -> dict:
+    """Phase 21: (a) ``cohortdepth`` and ``cnv`` in two processes over
+    Gloo on the one card (phase 12's 8 BAMs, --engine device), process
+    0's output byte-identical to phase 12's single-process run, process 1
+    printing nothing; (b) sharded_depth_fn on a (1, 2) grid in both carry
+    modes, the assembled depth and window sums bitwise the plain
+    version's over the whole 20 Mb; (c) run_prefetched_cohort on that
+    grid, on all of (b)'s segments, at prefetch depth 0 and 2 and in
+    a world of one, λ and CN bitwise, the window means the plain
+    version's; (d) the split over devices (cuda:0 twice): _batched_em at
+    phase 11's 64,445 x 2,504, bitwise, and the PCA's Gram step within
+    pca_tolerances; (e) measure_resume_overhead(quick=True) and
+    bisect_bench.measure()."""
+    import threading
+
+    import torch
+
+    from goleft_tpu_torch.cohort.pca import sharded_pca
+    from goleft_tpu_torch.commands import emdepth_cmd as ec
+    from goleft_tpu_torch.ops import depth_kernel as dk
+    from goleft_tpu_torch.parallel.mesh import make_mesh
+    from goleft_tpu_torch.parallel.prefetch import run_prefetched_cohort
+    from goleft_tpu_torch.resilience.overhead import measure_resume_overhead
+    from goleft_tpu_torch.serve import bisect_bench
+
+    t_phase = time.perf_counter()
+    out = {}
+    # the bisection bench sleeps its modelled passes: on a thread of its
+    # own while the phase waits on its processes
+    bisect = {}
+    bt = threading.Thread(target=lambda: bisect.update(
+        bisect_bench.measure()), daemon=True)
+    bt.start()
+
+    # (a) the two commands, two processes each
+    bams, fa = cnv["bams"], cnv["fa"]
+    single = cnv.pop("single")
+    runs = {}
+    for prog, extra in (
+            ("cohortdepth", lambda r: []),
+            ("cnv", lambda r: ["--vcf", os.path.join(workdir, f"md{r}.vcf"),
+                               "--matrix-out",
+                               os.path.join(workdir, f"md{r}.cn.tsv")])):
+        reports = [os.path.join(workdir, f"md_{prog}{r}.json")
+                   for r in range(2)]
+        outs = _md_pair(root, lambda r: [
+            sys.executable, "-m", "goleft_tpu_torch", "--metrics-out",
+            reports[r], prog, "-w", str(CNV_WINDOW), "-r", fa, "--engine",
+            "device", *extra(r), *bams])
+        mans = [read_manifest(p, prog) for p in reports]
+        if outs[1][1]:
+            raise AssertionError(f"{prog}: process 1 printed to stdout: "
+                                 f"{outs[1][1][:200]!r}")
+        if prog == "cohortdepth":
+            _diff_rows("cohortdepth, two processes against one",
+                       outs[0][1], single["cohortdepth"])
+        else:
+            for what, got, want in zip(
+                    ("calls", "VCF", "CN matrix"),
+                    (outs[0][1], open(os.path.join(workdir, "md0.vcf")).read(),
+                     open(os.path.join(workdir, "md0.cn.tsv")).read()),
+                    single["cnv"]):
+                _diff_rows(f"cnv {what}, two processes against one", got,
+                           want)
+            for p in ("md1.vcf", "md1.cn.tsv"):
+                assert not os.path.exists(os.path.join(workdir, p)), p
+        launches = [m[0]["kernel_launches"]["depth"] for m in mans]
+        assert launches == [MD_SAMPLES // 2] * 2, (prog, launches)
+        runs[prog] = {
+            "walls_s": [o[3] for o in outs],
+            "command_s": [m[1] for m in mans],
+            "import_s": [m[0]["import_seconds"] for m in mans],
+            "launches": launches,
+            "single_wall_s": single[prog + "_wall_s"]}
+        log(f"{prog} in two processes (Gloo, both on {dev}): process 0's "
+            f"output byte-identical to the single-process run, process 1 "
+            f"silent; walls {runs[prog]['walls_s'][0]:.3f} / "
+            f"{runs[prog]['walls_s'][1]:.3f} s (single process "
+            f"{runs[prog]['single_wall_s']:.3f} s), import "
+            f"{runs[prog]['import_s'][0]:.3f} / "
+            f"{runs[prog]['import_s'][1]:.3f} s; depth launches {launches}")
+    out["commands"] = runs
+
+    # (b) + (c) in two processes of one world
+    outs = _md_pair(root, lambda r: [sys.executable, "-c", _MD_WORKER, root,
+                                     workdir])
+    reps = []
+    for r in range(2):
+        with open(os.path.join(workdir, f"md_rank{r}.json")) as fh:
+            reps.append(json.load(fh))
+    for mode in ("all_gather", "scan"):
+        assert [x["b"][mode]["launches"] for x in reps] == [1, 1], reps
+    for d in ("0", "2"):
+        n_chunks = MD_SHARDS * SHARD // (MD_SHARDS * MD_CHUNK_SHARD)
+        assert [x["c"][d]["launches"] for x in reps] == [n_chunks] * 2
+    out["ranks"] = reps
+    out["worker_walls_s"] = [o[3] for o in outs]
+    b = {m: [x["b"][m] for x in reps] for m in ("all_gather", "scan")}
+    log(f"sharded_depth_fn on a (1, 2) grid: {MD_SAMPLES} samples over "
+        f"{MD_SHARDS} x {SHARD} bp ({reps[0]['segments']} segments), both "
+        f"carry modes bitwise the plain version over the whole "
+        f"{MD_SHARDS * SHARD} bp (depth, window sums); one depth launch a "
+        f"rank a call; local step (both ranks on the card at once) "
+        + ", ".join(f"{m} {b[m][0]['local_ms']:.3f} / {b[m][1]['local_ms']:.3f}"
+                    f" ms" for m in b)
+        + "; carry collective "
+        + ", ".join(f"{m} {b[m][0]['carry_ms']:.3f} / "
+                    f"{b[m][1]['carry_ms']:.3f} ms" for m in b)
+        + f"; plain version {reps[0]['b']['all_gather_plain_s']:.3f} s; "
+        f"worker import {reps[0]['import_s']:.3f} / {reps[1]['import_s']:.3f}"
+        f" s, inputs {reps[0]['prep_s']:.3f} s")
+
+    # (c) the world of one, in this process, and the plain version's
+    # window means of the same segments over the whole 20 Mb
+    st, en, kp = md_segments()
+    chunk_len = MD_SHARDS * MD_CHUNK_SHARD
+    L = MD_SHARDS * SHARD
+    dk.LAUNCHES["depth"] = 0
+    t0 = time.perf_counter()
+    one = run_prefetched_cohort(
+        make_mesh(), chunk_len, WINDOW, list(range(L // chunk_len)),
+        md_chunk_decoder(st, en, kp, chunk_len), MD_SAMPLES,
+        prefetch_depth=2, keep_depth=False)
+    one_s, one_launches = time.perf_counter() - t0, dk.LAUNCHES["depth"]
+    two = np.load(os.path.join(workdir, "md_c.npz"))
+    for k in ("wmeans", "lambdas", "cn", "carry"):
+        if one[k].tobytes() != two[k].tobytes():
+            raise AssertionError(f"run_prefetched_cohort: {k} of the world "
+                                 "of one differs from the world of two")
+    for i in range(MD_SAMPLES):
+        t = [torch.from_numpy(np.ascontiguousarray(x[i])).to(dev)
+             for x in (st, en, kp)]
+        sums = dk.fused_depth_plain(*t, 0, 0, L, 2**31 - 1, 1, 0, L,
+                                    WINDOW)[0]
+        if (sums.cpu().numpy() / np.float32(WINDOW)).tobytes() \
+                != one["wmeans"][i].tobytes():
+            raise AssertionError("run_prefetched_cohort: window means of "
+                                 f"sample {i} differ from the plain version")
+    lam, cn = one["lambdas"], one["cn"]
+    assert np.isfinite(lam).all() and lam.shape == (L // WINDOW, 9)
+    assert cn.min() >= 0 and cn.max() <= 8 and (cn == 2).mean() > 0.5
+    c = {d: [x["c"][d] for x in reps] for d in ("0", "2")}
+    out["prefetched"] = {"world1_s": one_s, "world1_launches": one_launches,
+                         "world2": c}
+    log(f"run_prefetched_cohort, {L // chunk_len} chunks of {MD_SHARDS} x "
+        f"{MD_CHUNK_SHARD} bp, {int(kp.sum())} segments, no depth to the host: λ, CN, window means and "
+        f"carry bitwise across prefetch depth 0 and 2 and the worlds of two "
+        f"and one, the window means the plain version's; walls depth 0 "
+        f"{c['0'][0]['wall_s']:.3f} s, depth 2 {c['2'][0]['wall_s']:.3f} s "
+        f"(world of two), world of one {one_s:.3f} s; stage seconds "
+        f"(depth 2, rank 0): " + ", ".join(
+            f"{k} {v['seconds']:.3f}" for k, v in
+            sorted(c["2"][0]["stages"].items())))
+
+    # (d) the split over devices: cuda:0 twice
+    depths, med, medmed, lam1, cn1 = em_fx
+    t0 = time.perf_counter()
+    lam2, cn2 = ec._batched_em(depths, med, medmed, devices=[dev, dev])
+    em_split_s = time.perf_counter() - t0
+    if lam2.tobytes() != lam1.tobytes() or cn2.tobytes() != cn1.tobytes():
+        raise AssertionError("_batched_em over two devices differs from one")
+    n, bins, k, rows = MD_PCA
+    rng = np.random.default_rng(2122)
+    basis = np.linalg.qr(rng.standard_normal((bins, k)))[0]
+    x = ((rng.standard_normal((n, k)) * (200.0 / 2 ** np.arange(k)))
+         @ basis.T + rng.standard_normal((n, bins))
+         + 30.0).astype(np.float32)
+
+    def chunks():
+        return (x[lo:lo + rows] for lo in range(0, n, rows))
+
+    fits, pca_s = {}, {}
+    for name, devs in (("one", [dev]), ("two", [dev, dev])):
+        t0 = time.perf_counter()
+        fits[name] = sharded_pca(chunks, k=k, devices=devs)
+        pca_s[name] = time.perf_counter() - t0
+    proj = {nm: np.vstack([f.project(c) for c in chunks()])
+            for nm, f in fits.items()}
+    _, _, vt = np.linalg.svd(x - x.mean(axis=0), full_matrices=False)
+    tols = pca_tolerances(x, k)
+    errs = pcs_up_to_sign(proj["two"], proj["one"], "Gram split", tols)
+    pcs_up_to_sign(proj["two"], x @ vt[:k].T, "Gram split against the SVD",
+                   tols)
+    out["split"] = {"em_two_devices_s": em_split_s, "pca_s": pca_s,
+                    "pca_errs": errs, "pca_tolerances": tols}
+    log(f"split over [{dev}, {dev}]: _batched_em at {depths.shape[0]} x "
+        f"{depths.shape[1]} bitwise one device's ({em_split_s:.3f} s); the "
+        f"PCA's Gram step ({n} x {bins}, chunks of {rows} rows, padded with "
+        f"mean rows) within pca_tolerances of one device's and of the SVD "
+        f"(worst share {max(errs):.3g}); {pca_s['one']:.3f} s one device, "
+        f"{pca_s['two']:.3f} s two")
+
+    # (e) the two measurements
+    t0 = time.perf_counter()
+    ov = measure_resume_overhead(quick=True)
+    bt.join(MD_TIMEOUT)
+    assert bisect, "bisect_bench.measure() did not finish"
+    out["resume_overhead"] = ov
+    out["bisect"] = bisect
+    log("measure_resume_overhead(quick=True): " + json.dumps(ov))
+    log("bisect_bench.measure(): " + json.dumps(bisect))
+    launches = (sum(r["launches"][0] + r["launches"][1]
+                    for r in runs.values())
+                + sum(x["b"][m]["launches"] for x in reps
+                      for m in ("all_gather", "scan"))
+                + sum(x["c"][d]["launches"] for x in reps for d in ("0", "2"))
+                + one_launches)
+    out["depth_launches"] = launches
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 21 (multi-device): {out['seconds']:.1f} s, "
+          f"{launches} depth-kernel launches", flush=True)
+    return out
+
+
 def build_kernels(mods) -> dict:
     """One nvcc per kernel source, all started together → build seconds
     per kernel."""
-    from concurrent.futures import ThreadPoolExecutor
-
     def build(mod):
         t0 = time.perf_counter()
         mod.load_library()
@@ -4982,7 +5551,7 @@ def main(argv=None) -> int:
     workdir = os.path.join(root, "build", "chip_smoke")
     # the rANS phase's plain versions on the host CPU, in worker processes
     # that run on beside the cohort and flags phases
-    plain_pool = mp.get_context("spawn").Pool(3)
+    plain_pool = mp.get_context("spawn").Pool(4)
     try:
         results["kernel"] = kres = kernel_phase(dev)
         results["depth_batch"] = dbres = depth_batch_phase(dev)
@@ -5032,17 +5601,18 @@ def main(argv=None) -> int:
             co["hybrid"]["launches"]["rans"],
             {"cohort": co["hybrid"]["command_s"],
              "pairhmm": pe2e["command_s"]}, args.trace_dir)
-        rans_plain_checks()
-        results["em"] = em_phase(root, dev)
+        results["em"], em_fx = em_phase(root, dev)
         results["cnv_e2e"] = cnv = cnv_e2e_phase(root, workdir)
         depth["cnv_launches"] = cnv["runs"]["device"]["launches"]["depth"]
+        results["norm_kernel"] = nres = norm_kernel_phase(dev)
+        # the rANS phase's plain versions, done on the host by now
+        rans_plain_checks()
         o0 = rres["ORDER0"]  # the cohort's most common codec
         rans.update(status="pass", launches=co["hybrid"]["launches"]["rans"],
                     max_abs_err=rres["max_abs_err"], ms=o0["ms"],
                     plain_ms=o0["plain_ms"], bound_ms=o0["bound_ms"],
                     bound_by=o0["bound_by"],
                     chain_bound_ms=o0["chain_bound_ms"])
-        results["norm_kernel"] = nres = norm_kernel_phase(dev)
         results["indexcov"], ic_fixture = indexcov_phase(root, workdir)
         ic = results["indexcov"]
         results["cohortscan"] = cs = cohortscan_phase(root, workdir,
@@ -5079,6 +5649,10 @@ def main(argv=None) -> int:
             "depth": depth_fixture, "cnv_fa": cnv["fa"]}, sv)
         sv.pop("burst_bodies")
         depth["fleet_launches"] = fl["launches"]
+        results["multi_device"] = md = multi_device_phase(
+            root, workdir, dev, cnv, em_fx)
+        del em_fx
+        depth["multi_device_launches"] = md["depth_launches"]
         swk.update(status="pass", launches=mres["launches"]["swalign"],
                    max_abs_err=sres["max_abs_err"], ms=sres["ms"],
                    plain_ms=sres["plain_ms"], bound_ms=sres["bound_ms"],

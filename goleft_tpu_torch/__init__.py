@@ -21,7 +21,10 @@ Subpackages:
   resilience fault injection, retry policy, quarantine
   obs        counters and logger
   parallel   ordered thread-pool shard scheduler, chunk prefetcher and
-             pinned-buffer staging
+             pinned-buffer staging; the world of processes over Gloo and
+             its (data, seq) mesh, the sequence-parallel depth on the
+             depth kernel, the chunked cohort step and the cohort matrix
+             across processes
   commands   CLI subcommands
   utils      transparent IO, stage timers, decode-pool sizing
 """

@@ -37,6 +37,7 @@ root span parents the pipeline's stages, whichever threads record them.
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -186,7 +187,17 @@ def usage() -> str:
 
 def _run_command(prog: str, argv: list[str]) -> int:
     """Dispatch with the reference's error contract: 0 / 1 on bad input
-    or a missing card (one clean line) / 141 on a closed stdout."""
+    or a missing card (one clean line) / 141 on a closed stdout. A world
+    of processes (``GOLEFT_TPU_COORDINATOR``) is joined first, before
+    any device bring-up; without one this imports no torch."""
+    from .parallel.mesh import init_distributed
+
+    if os.environ.get("GOLEFT_TPU_COORDINATOR"):
+        t0 = time.perf_counter()
+        import torch.distributed  # noqa: F401 (torch's import, timed)
+
+        IMPORT_SECONDS["torch.distributed"] = time.perf_counter() - t0
+    init_distributed()
     if PROGS[prog][2]:
         t0 = time.perf_counter()
         from . import device  # noqa: F401 (the first import of torch)
@@ -197,8 +208,6 @@ def _run_command(prog: str, argv: list[str]) -> int:
         ret = PROGS[prog][1](argv)
         sys.stdout.flush()
     except BrokenPipeError:
-        import os
-
         try:
             devnull = os.open(os.devnull, os.O_WRONLY)
             os.dup2(devnull, sys.stdout.fileno())
@@ -206,8 +215,6 @@ def _run_command(prog: str, argv: list[str]) -> int:
             pass
         return 141
     except (ValueError, NoCudaDevice) as e:
-        import os
-
         if os.environ.get("GOLEFT_TPU_DEBUG"):
             raise
         print(f"goleft-tpu-torch {prog}: {e}", file=sys.stderr)

@@ -17,9 +17,13 @@ ran it in float32; utils/dtypes.py made the same choice for the EM).
 The seeded start, the QR, the Rayleigh–Ritz rotation and the sign
 pinning stay host numpy, as in the reference.
 
-The reference splits a chunk's rows over the devices of a process
-(``shard_map`` + ``psum``). The port runs one card, one Gram step a
-chunk; several cards are left for the multi-device work.
+The Gram step splits a chunk's rows over ``devices`` (every visible
+card unless the caller names a device or a list), padded with mean rows
+(their centred contribution is zero), as the reference's ``shard_map`` +
+``psum`` does; the partial products add on the first device in device
+order. That changes the float64 summation order, so the components
+agree with one device's to the PCA tolerances, not bit for bit. On a
+one-card host it is one Gram step a chunk, as before.
 
 Semantics match the oracle: column-center for the decomposition,
 project the *raw* matrix onto the top-k right singular vectors, report
@@ -34,7 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_devices
 
 #: the accumulation type of every product, on the card and on the CPU
 ACC = torch.float64
@@ -88,17 +92,35 @@ class ShardedPCA:
         return np.asarray(x @ self.components_, np.float32)
 
 
+def _split_gram(chunk: torch.Tensor, means, qs, devs) -> torch.Tensor:
+    """Cᵀ(CQ) of one chunk (on the first device) with its rows split over
+    ``devs`` (padded with mean rows to a multiple of their count), the
+    partials summed on the first device in device order; ``means`` and
+    ``qs`` hold the mean and the iterate on each device. One device: one
+    product."""
+    pad = (-chunk.shape[0]) % len(devs)
+    if pad:
+        chunk = torch.cat([chunk, means[0].expand(pad, -1)])
+    parts = torch.tensor_split(chunk, len(devs))
+    g = _chunk_gram(parts[0], means[0], qs[0])
+    for p, m, q, d in zip(parts[1:], means[1:], qs[1:], devs[1:]):
+        g += _chunk_gram(p.to(d), m, q).to(devs[0])
+    return g
+
+
 def sharded_pca(chunks_fn, k: int = 5, *, iters: int = 32,
-                seed: int = 1, device=None) -> ShardedPCA:
+                seed: int = 1, device=None, devices=None) -> ShardedPCA:
     """Fit top-k principal directions by chunked block power iteration.
 
     ``chunks_fn`` is a zero-arg callable yielding the sample chunks
     (each (chunk, n_bins) float32, all the same width) in cohort order;
     it is called ``iters + 2`` times, so chunks should be cheap to
     re-materialize (the scan engine mmap-reads its spill files). Each
-    chunk goes to ``device`` once a pass.
+    chunk goes to the first device once a pass (its rows split over
+    ``devices`` in the Gram step: :func:`resolve_devices`).
     """
-    dev = resolve_device(device)
+    devs = resolve_devices(devices, device)
+    dev = devs[0]
 
     def chunks():
         for chunk in chunks_fn():
@@ -129,7 +151,8 @@ def sharded_pca(chunks_fn, k: int = 5, *, iters: int = 32,
         / max(n - 1, 1)
 
     mean32 = mean.astype(np.float32)
-    mean_t = torch.from_numpy(mean32).to(dev)
+    means = [torch.from_numpy(mean32).to(d) for d in devs]
+    mean_t = means[0]
 
     # ---- block power iteration on the Gram operator ----
     rng = np.random.default_rng(seed)
@@ -137,10 +160,10 @@ def sharded_pca(chunks_fn, k: int = 5, *, iters: int = 32,
         rng.standard_normal((n_bins, k_eff)).astype(np.float64))[0]
     q = q.astype(np.float32)
     for _ in range(iters):
-        q_t = torch.from_numpy(q).to(dev)
+        qs = [torch.from_numpy(q).to(d) for d in devs]
         acc = torch.zeros((n_bins, k_eff), dtype=ACC, device=dev)
         for chunk in chunks():
-            acc += _chunk_gram(chunk, mean_t, q_t)
+            acc += _split_gram(chunk, means, qs, devs)
         q = np.linalg.qr(acc.cpu().numpy())[0].astype(np.float32)
 
     # ---- Rayleigh–Ritz rotation inside the converged subspace ----

@@ -19,7 +19,10 @@ As in the JAX package, ``cnv`` runs without a quarantine: a sample that
 fails to open, or fails permanently mid-run, fails the command instead
 of zero-filling its column.
 
-Not ported, refused with one line: the multi-process path.
+In a world of processes (parallel/mesh.py) the samples split over the
+processes and the matrix assembles over Gloo
+(parallel/distributed_cohort.py); process 0 runs the EM and the merge
+and writes every output, the others return no calls.
 """
 
 from __future__ import annotations
@@ -67,12 +70,31 @@ def run_cnv(bams, reference=None, fai=None, window: int = 1000,
             bed: str | None = None, device=None):
     """The CLI body on ``device`` (the card unless ``"cpu"``) → the
     merged calls."""
-    if int(os.environ.get("GOLEFT_TPU_NUM_PROCESSES", "1") or 1) > 1:
-        raise SystemExit("cnv: the multi-process path is not ported to "
-                         "goleft_tpu_torch yet")
-    device = resolve_device(device)
+    from ..parallel.mesh import rank_device, world
+
+    n_proc, rank = world()
     out = out or sys.stdout
     fai_path = fai or (reference + ".fai" if reference else None)
+    if n_proc > 1:
+        from ..parallel.distributed_cohort import distributed_cohort_matrix
+
+        device = rank_device(device, rank)
+        names, chroms, starts, ends, depths = distributed_cohort_matrix(
+            bams, reference=reference, fai=fai, window=window, mapq=mapq,
+            chrom=chrom, processes=processes, engine=engine, bed=bed,
+            device=device)
+        if len(starts) == 0 or rank != 0:
+            return []
+        contig_lengths = None
+        if vcf_out and fai_path:
+            # the .fai exists now (process 0 wrote it before the barrier)
+            contig_lengths = {r.name: r.length for r in read_fai(fai_path)}
+        return call_cnvs(chroms, starts, ends, depths, names, out=out,
+                         matrix_out=matrix_out, vcf_out=vcf_out,
+                         mops_out=mops_out, gain_out=gain_out,
+                         contig_lengths=contig_lengths,
+                         ref_fasta=reference, ref_fai=fai, device=device)
+    resolve_device(device)  # no card: fail before any decode
     contig_lengths = None
     if vcf_out and fai_path:
         # read the .fai up front: a missing or unreadable index fails

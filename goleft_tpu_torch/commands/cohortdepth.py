@@ -35,7 +35,15 @@ no launch). Each computed region passes the ``shard`` fault site, where
 ``--inject-faults shard:after=N:kill`` kills the run between commits.
 Inputs may be ``https://`` or ``s3://`` URLs (io/remote.py).
 
-Not ported, refused with one line: the multi-process path.
+In a world of processes (``GOLEFT_TPU_COORDINATOR``,
+``GOLEFT_TPU_NUM_PROCESSES``, ``GOLEFT_TPU_PROCESS_ID``; parallel/mesh.py)
+process i decodes every P-th sample on its own card and the matrix
+assembles over Gloo (parallel/distributed_cohort.py); process 0 writes
+it, the others write nothing. As in the JAX package that path runs
+without the quarantine; ``--checkpoint-dir`` is refused there.
+
+The device engine splits the samples over ``devices`` (default: every
+visible card), one ``DepthEngine`` a card; the matrix is the same bytes.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import sys
 import numpy as np
 
 from .. import obs
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..io import remote
 from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
@@ -107,7 +115,8 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
                          processes: int = 8, engine: str = "auto",
                          bed: str | None = None, prefetch_depth: int = 0,
                          *, quarantine, checkpoint=None,
-                         decode_device: bool = False, device=None):
+                         decode_device: bool = False, device=None,
+                         devices=None):
     """(sample_names, block generator). Each block is (chrom, starts,
     ends, vals), vals an int64 (samples, n_windows) array of
     round-half-up window means.
@@ -124,7 +133,11 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
     whose every column is committed is restored from the store with no
     decode and no launch. Without a ``quarantine`` (``cnv``), a sample
     that fails to open or fails permanently raises instead. ``device``:
-    the card unless ``"cpu"``."""
+    the card unless ``"cpu"``; the device engine runs on ``devices``
+    (:func:`~goleft_tpu_torch.device.resolve_devices`: every visible card
+    unless the caller names a device or a list), contiguous blocks of
+    samples a device."""
+    asked = device
     device = resolve_device(device)
     fai_path = fai or (reference + ".fai" if reference else None)
     if fai_path is None:
@@ -193,11 +206,13 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
         engine = "hybrid" if fused else "device"
     if engine == "hybrid" and not fused:
         raise SystemExit("cohortdepth: engine=hybrid needs the native io")
-    depth_engine = None
+    depth_engines = []
     if engine == "device":
         max_span = max(e - (s // window) * window for _, s, e in regions)
-        depth_engine = DepthEngine(window, 4, 0, mapq, max_span=max_span,
-                                   device=device)
+        # the caller's device or list, else every visible card
+        devs = resolve_devices(devices, asked)
+        depth_engines = [DepthEngine(window, 4, 0, mapq, max_span=max_span,
+                                     device=d) for d in devs]
     tid_maps = [{n: i for i, n in enumerate(h.header.ref_names)}
                 for h in handles]
 
@@ -222,7 +237,7 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
         def body():
             if tid < 0:
                 return fallback()
-            if depth_engine is None:
+            if not depth_engines:
                 voff = None
                 if bais[i] is not None:  # a BAM: start at its index
                     voff = query_voffset(bais[i], tid, s)
@@ -233,9 +248,10 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
                                        DEPTH_SKIP_FLAGS, voffset=voff)
             seg_s, seg_e = _decode_shard_segments(h, bais[i], tid, s, e,
                                                   mapq)
+            # samples split over the devices in contiguous blocks
+            eng = depth_engines[i * len(depth_engines) // len(handles)]
             with timer.stage("reduce"):
-                return depth_engine.run_segments(seg_s, seg_e, None, s,
-                                                 e)[2]
+                return eng.run_segments(seg_s, seg_e, None, s, e)[2]
 
         with obs.attach(span_ctx), timer.stage("sample-shard"):
             return pex.run(Step(key=(names[i], s, e), fn=body,
@@ -359,9 +375,17 @@ def run_cohortdepth(bams: list[str], reference: str | None = None,
     with ``checkpoint_dir`` its ``quarantine.json``). ``checkpoint_dir``
     commits each computed region; ``resume`` replays the store's journal
     first and skips the regions it holds."""
-    if int(os.environ.get("GOLEFT_TPU_NUM_PROCESSES", "1") or 1) > 1:
-        raise SystemExit("cohortdepth: the multi-process path is not "
-                         "ported to goleft_tpu_torch yet")
+    from ..parallel.mesh import world
+
+    n_proc, rank = world()
+    if n_proc > 1:
+        return _run_distributed(
+            bams, rank, checkpoint_dir, resume, reference=reference,
+            fai=fai,
+            window=window, mapq=mapq, chrom=chrom, processes=processes,
+            out=out or sys.stdout, engine=engine, bed=bed,
+            prefetch_depth=prefetch_depth, decode_device=decode_device,
+            device=device)
     if resume and not checkpoint_dir:
         raise SystemExit("cohortdepth: --resume requires --checkpoint-dir")
     from ..resilience.checkpoint import CheckpointStore
@@ -392,6 +416,28 @@ def run_cohortdepth(bams: list[str], reference: str | None = None,
                                           "quarantine.json"))
         print(quarantine.exit_summary(), file=sys.stderr)
         return 3
+    return 0
+
+
+def _run_distributed(bams, rank, checkpoint_dir, resume, out,
+                     **kw) -> int:
+    """The multi-process path: samples split over the world's
+    processes, the matrix gathered on all; process 0 writes it."""
+    if checkpoint_dir or resume:
+        raise SystemExit("cohortdepth: --checkpoint-dir and --resume are "
+                         "not supported in a multi-process world")
+    from ..parallel.distributed_cohort import distributed_cohort_matrix
+
+    names, chroms, starts, ends, mat = distributed_cohort_matrix(bams, **kw)
+    if rank != 0:
+        return 0
+    out.write("#chrom\tstart\tend\t" + "\t".join(names) + "\n")
+    lo = 0
+    for hi in range(1, len(chroms) + 1):
+        if hi == len(chroms) or chroms[hi] != chroms[lo]:
+            out.write(format_block(chroms[lo], starts[lo:hi], ends[lo:hi],
+                                   mat[lo:hi].T.astype(np.int64)))
+            lo = hi
     return 0
 
 

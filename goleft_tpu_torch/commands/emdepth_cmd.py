@@ -24,12 +24,14 @@ the results copied down), ``merge`` and ``output``.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
 import sys
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import obs
+from ..device import resolve_device, resolve_devices
 from ..models import emdepth as em
 from ..utils.dtypes import preferred_float
 from ..utils.profiling import StageTimer
@@ -75,26 +77,40 @@ def _norm_chunk(chunk: np.ndarray, med, medmed, dtype,
 
 
 def _batched_em(depths: np.ndarray, med=None, medmed=None, dtype=None,
-                device=None):
-    """(λ (B, 9), CN (B, S) int8): the EM in ``EM_CHUNK``-window chunks
-    on ``device`` (the card unless ``"cpu"``), each chunk scaled there by
-    ``med``/``medmed`` (:func:`_norm_chunk`). The JAX package pads the
-    last chunk with ones so that ``jit`` compiles one shape; eager
-    PyTorch compiles nothing and every row is independent, so the last
-    chunk runs at its own size."""
-    device = resolve_device(device)
+                device=None, devices=None):
+    """(λ (B, 9), CN (B, S) int8): the EM in ``EM_CHUNK``-window chunks,
+    each chunk scaled on its device by ``med``/``medmed``
+    (:func:`_norm_chunk`). The chunks split over ``devices``
+    (:func:`~goleft_tpu_torch.device.resolve_devices`: every visible card
+    unless the caller names ``device`` or a list), chunk k on device k
+    mod n, one thread a device; every row is independent and each chunk
+    keeps its shape, so the result is bitwise the one device's. The JAX
+    package pads the last chunk with ones so that ``jit`` compiles one
+    shape; eager PyTorch compiles nothing, so the last chunk runs at its
+    own size."""
+    devs = resolve_devices(devices, device)
     dtype = dtype or (depths.dtype if depths.dtype.kind == "f"
                       else preferred_float())
     lams = np.empty((len(depths), em.N_LAMBDA), dtype)
     cns = np.empty(depths.shape, np.int8)
-    for lo in range(0, len(depths), EM_CHUNK):
-        with TIMER.stage("em-chunk"):
-            c = _norm_chunk(depths[lo:lo + EM_CHUNK], med, medmed, dtype,
-                            device)
-            lam = em.em_depth_batch(c)
-            cn = em.cn_batch(lam, c)
-            lams[lo:lo + len(c)] = lam.cpu().numpy()
-            cns[lo:lo + len(c)] = cn.cpu().numpy()
+
+    offsets = list(range(0, len(depths), EM_CHUNK))
+    # the device threads' spans parent under the caller's span
+    span_ctx = obs.capture()
+
+    def one_device(k):
+        for lo in offsets[k::len(devs)]:
+            with obs.attach(span_ctx), TIMER.stage("em-chunk"):
+                c = _norm_chunk(depths[lo:lo + EM_CHUNK], med, medmed,
+                                dtype, devs[k])
+                lam = em.em_depth_batch(c)
+                cn = em.cn_batch(lam, c)
+                lams[lo:lo + len(c)] = lam.cpu().numpy()
+                cns[lo:lo + len(c)] = cn.cpu().numpy()
+
+    with cf.ThreadPoolExecutor(len(devs)) as ex:
+        for f in [ex.submit(one_device, k) for k in range(len(devs))]:
+            f.result()
     return lams, cns
 
 
@@ -162,8 +178,9 @@ def call_cnvs(chroms, starts, ends, depths, samples, out=None,
     """EM copy-number calls from in-memory matrix arrays (``cnv`` passes
     the cohort matrix here directly) on ``device`` (the card unless
     ``"cpu"``) → the merged calls as (chrom, start, end, sample, CN,
-    log2FC) tuples, also written to ``out``."""
-    device = resolve_device(device)
+    log2FC) tuples, also written to ``out``. The EM's chunks split over
+    every visible card unless the caller names ``device``."""
+    dev = resolve_device(device)
     out = out or sys.stdout
     if len(depths) == 0:
         return
@@ -176,7 +193,7 @@ def call_cnvs(chroms, starts, ends, depths, samples, out=None,
     if mops_out or gain_out:
         with TIMER.stage("mops"):
             _mops_outputs(chroms, starts, ends, depths, samples, med,
-                          medmed, dt, mops_out, gain_out, device)
+                          medmed, dt, mops_out, gain_out, dev)
     # every window's CN row comes back with its λ: the merge reads the
     # CN of aberrant windows from it, with no device call per window
     lambdas, cns = _batched_em(depths, med, medmed, dt, device=device)
@@ -246,7 +263,7 @@ def run_emdepth(matrix_path: str, out=None, normalize: bool = True,
                 candidates_out: str | None = None, device=None):
     """The CLI body on ``device`` (the card unless ``"cpu"``) → the
     merged calls."""
-    device = resolve_device(device)
+    resolve_device(device)  # no card: fail before the matrix is read
     return call_cnvs(*read_matrix(matrix_path), out=out,
                      normalize=normalize, matrix_out=matrix_out,
                      vcf_out=vcf_out, mops_out=mops_out,

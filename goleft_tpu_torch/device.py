@@ -32,6 +32,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def resolve_devices(devices=None, device=None) -> list[torch.device]:
+    """The devices a split runs on: ``devices`` (a list, each resolved
+    as :func:`resolve_device`; ``["cpu", "cpu"]`` splits on the CPU),
+    else ``[device]`` when the caller names one, else every visible
+    card (raises :class:`NoCudaDevice` without one). On a one-card host
+    the default is that card alone."""
+    if devices is not None:
+        out = [resolve_device(d) for d in devices]
+        if not out:
+            raise ValueError("an empty list of devices")
+        return out
+    if device is not None:
+        return [resolve_device(device)]
+    resolve_device(None)
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def nvidia_smi_line() -> str:
     """The card's name and power limit as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``

@@ -39,6 +39,10 @@ class Step:
     ``fallback()`` instead of raising (cohortdepth's per-sample
     contract).
 
+    ``resumable=False`` keeps the commit but never restores: a step
+    whose value threads into the next (the chunked cohort's carry) is
+    resumed by its caller.
+
     ``retry=False`` runs ``fn`` outside the retry policy (errors
     propagate raw) but keeps the fault site and the checkpoint: the
     cohort's region steps, whose inner work carries its own per-sample
@@ -56,6 +60,7 @@ class Step:
     name: str = ""
     site: str | None = None
     retry: bool = True
+    resumable: bool = True
     cacheable: bool = False
     checkpoint_key: tuple | None = None
     checkpoint_keys: Sequence[tuple] | None = None

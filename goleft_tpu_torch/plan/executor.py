@@ -114,7 +114,7 @@ class Executor:
 
         ck = self.checkpoint
         ck_keys = step.ck_keys() if ck is not None else []
-        if ck_keys and all(ck.has(k) for k in ck_keys):
+        if step.resumable and ck_keys and all(ck.has(k) for k in ck_keys):
             vals = [ck.get(k) for k in ck_keys]
             value = step.restore(vals) if step.restore is not None \
                 else vals[0] if step.checkpoint_key is not None else vals

@@ -180,10 +180,14 @@ def test_deep_deletion_gain_differs_only_past_f64_digits(
 def cpu_cli(monkeypatch):
     """The port's CLI with the commands' default device on the CPU."""
     cpu = lambda d=None: tdev.resolve_device("cpu" if d is None else d)  # noqa: E731
+    cpus = lambda ds=None, d=None: tdev.resolve_devices(  # noqa: E731
+        ds, "cpu" if d is None else d)
     from goleft_tpu_torch.commands import cohortdepth as tcd
 
     for mod in (tcmd, tcnv, tcd):
         monkeypatch.setattr(mod, "resolve_device", cpu)
+    for mod in (tcmd, tcd):
+        monkeypatch.setattr(mod, "resolve_devices", cpus)
     return cli.main
 
 
@@ -372,8 +376,10 @@ def test_cnv_fails_on_a_sample_that_does_not_open(cohort, tmp_path):
 
 def test_cnv_refuses_multi_process_and_needs_a_card(cohort, monkeypatch):
     fa, bams, _ = cohort
+    # a world of processes asked for and not up: no quiet world of one
+    monkeypatch.delenv("GOLEFT_TPU_COORDINATOR", raising=False)
     monkeypatch.setenv("GOLEFT_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit, match="multi-process"):
+    with pytest.raises(ValueError, match="asks for a world"):
         tcnv.run_cnv(bams, reference=fa, device=CPU)
     monkeypatch.delenv("GOLEFT_TPU_NUM_PROCESSES")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -305,8 +305,8 @@ def test_native_window_reductions_agree(c1_bam, mixed):
 
 
 def test_refusals(mixed, cohort, monkeypatch, tmp_path):
-    """What is not ported says so in one line (the multi-process path);
-    the flags this used to refuse now run: ``--checkpoint-dir`` and an
+    """A multi-process run asked for without a world raises; the flags
+    this used to refuse now run: ``--checkpoint-dir`` and an
     ``s3://`` cohort give the JAX package's matrix. The hybrid engine on
     BAM input runs, and needs the native io as in the reference."""
     from goleft_tpu.io.remote_stub import StubServer
@@ -344,8 +344,11 @@ def test_refusals(mixed, cohort, monkeypatch, tmp_path):
         monkeypatch.setenv("GOLEFT_TPU_S3_ENDPOINT", srv.url)
         rc, got = _port(urls, fai)
         assert rc == 0 and got == want_crams
+    # the multi-process path runs (tests/test_torch_distributed_cohort.py)
+    # in a world; asked for without one it raises, never a world of one
+    monkeypatch.delenv("GOLEFT_TPU_COORDINATOR", raising=False)
     monkeypatch.setenv("GOLEFT_TPU_NUM_PROCESSES", "2")
-    with pytest.raises(SystemExit, match="multi-process"):
+    with pytest.raises(ValueError, match="asks for a world"):
         run_cohortdepth(crams, fai=fai, out=io.StringIO(), device=CPU)
 
 

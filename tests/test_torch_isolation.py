@@ -796,6 +796,7 @@ TORCH_FREE_MODULES = [
     "goleft_tpu_torch.resilience.policy", "goleft_tpu_torch.plan",
     "goleft_tpu_torch.io.remote", "goleft_tpu_torch.commands.indexsplit",
     "goleft_tpu_torch.errors", "goleft_tpu_torch.cli",
+    "goleft_tpu_torch.parallel.mesh", "goleft_tpu_torch.serve.bisect_bench",
 ]
 
 
@@ -811,6 +812,23 @@ def test_module_loads_no_torch(module):
             "             & {'torch', 'jax', 'jaxlib', 'goleft_tpu'})\n"
             "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=ROOT, env=env)
+    assert r.returncode == 0, r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_init_distributed_without_coordinator_loads_no_torch():
+    """The dispatcher joins a world for every command: without
+    GOLEFT_TPU_COORDINATOR that is a no-op that imports no torch."""
+    code = ("import sys\n"
+            "from goleft_tpu_torch.parallel.mesh import init_distributed\n"
+            "init_distributed(); init_distributed()\n"
+            "bad = sorted({m.split('.')[0] for m in sys.modules}\n"
+            "             & {'torch', 'jax', 'jaxlib', 'goleft_tpu'})\n"
+            "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    env.pop("GOLEFT_TPU_COORDINATOR", None)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=ROOT, env=env)
     assert r.returncode == 0, r.stderr

@@ -3,7 +3,7 @@
 CUDA card.
 
     python3 tools/em_bench.py [--windows 64445] [--samples 2504]
-                              [--reps 3] [--out FILE]
+                              [--reps 3] [--out FILE] [--pkg DIR]
 
 On chip_smoke.py's int16 matrix (chr20 at 1 kb x the 2,504 samples of
 the 1000 Genomes phase-3 cohort by default), for the first
@@ -15,14 +15,20 @@ cn.mops (``mops_batch``, then
 ``--reps`` by CUDA events; then the
 kernels of one EM + CN chunk by ``torch.profiler`` (CUDA time by
 kernel name, the top 12), the whole ``_batched_em`` by the host
-clock, and the host's streaming merge (``Cache.add`` over the first
+clock (its first call in the process, then ``--reps`` more), and the
+host's streaming merge (``Cache.add`` over the first
 ``--merge-windows`` windows, as ``call_cnvs`` runs it) in ms a window.
 Prints the card's ``nvidia-smi`` name and power limit first.
+
+``--pkg DIR`` imports ``goleft_tpu_torch`` from the checkout at DIR
+instead of this one, with the same data and timing code: to compare two
+trees on one card, run parent, change, change, parent in one call.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -40,14 +46,20 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--merge-windows", type=int, default=1000)
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--pkg", help="checkout whose goleft_tpu_torch to time")
     a = ap.parse_args(argv)
+    sys.path.insert(0, os.path.abspath(a.pkg or ROOT))
     import torch
 
     if not torch.cuda.is_available():
         print("em_bench: no CUDA device is visible", file=sys.stderr)
         return 2
-    sys.path.insert(0, ROOT)
-    from chip_smoke import cuda_median_ms, em_matrix
+    # this checkout's chip_smoke.py (fixture, timing), whatever --pkg is
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cuda_median_ms, em_matrix = cs.cuda_median_ms, cs.em_matrix
     from goleft_tpu_torch.commands import emdepth_cmd as ec
     from goleft_tpu_torch.device import nvidia_smi_line
     from goleft_tpu_torch.models import emdepth as em
@@ -59,8 +71,8 @@ def main(argv=None) -> int:
     med, medmed = ec.sample_medians(depths)
     B = min(ec.EM_CHUNK, a.windows)
 
-    res = {"card": nvidia_smi_line(), "windows": a.windows,
-           "samples": a.samples, "chunk": B}
+    res = {"card": nvidia_smi_line(), "pkg": os.path.abspath(a.pkg or ROOT),
+           "windows": a.windows, "samples": a.samples, "chunk": B}
     res["h2d_int16_ms"] = cuda_median_ms(
         lambda: torch.from_numpy(depths[:B]).to(dev), a.reps)
     res["norm_chunk_ms"] = cuda_median_ms(
@@ -99,6 +111,12 @@ def main(argv=None) -> int:
     ec._batched_em(depths, med, medmed, device=dev)
     torch.cuda.synchronize()
     res["batched_em_s"] = time.perf_counter() - t0
+    res["batched_em_reps_s"] = []
+    for _ in range(a.reps):
+        t0 = time.perf_counter()
+        ec._batched_em(depths, med, medmed, device=dev)
+        torch.cuda.synchronize()
+        res["batched_em_reps_s"].append(time.perf_counter() - t0)
     res["window_samples_per_s"] = a.windows * a.samples / res["batched_em_s"]
     n = min(a.merge_windows, B)
     lam_h, cn_h = lam[:n].cpu().numpy(), cn[:n].cpu().numpy()
