@@ -57,7 +57,7 @@ import numpy as np
 
 from .. import obs
 from ..device import resolve_device, resolve_devices
-from ..io import remote
+from ..io import native, remote
 from ..io.bai import query_voffset, read_bai
 from ..io.bam import DEPTH_SKIP_FLAGS, open_bam_file
 from ..io.fai import read_fai, write_fai
@@ -362,6 +362,14 @@ def format_block(c, starts, ends, vals) -> str:
     return "".join(f"{c}\t" + "\t".join(row) + "\n" for row in zip(*cols))
 
 
+def matrix_rows(c, starts, ends, vals) -> str:
+    """:func:`format_block`'s text, written by the host library's C
+    formatter when it is loaded."""
+    buf = native.format_matrix_rows(c, starts, ends, vals)
+    return format_block(c, starts, ends, vals) if buf is None \
+        else buf.decode("ascii")
+
+
 def run_cohortdepth(bams: list[str], reference: str | None = None,
                     fai: str | None = None, window: int = 250,
                     mapq: int = 1, chrom: str = "", processes: int = 8,
@@ -406,7 +414,7 @@ def run_cohortdepth(bams: list[str], reference: str | None = None,
         out.write("#chrom\tstart\tend\t" + "\t".join(names) + "\n")
         for blk in blocks:
             with timer.stage("format"):
-                out.write(format_block(*blk))
+                out.write(matrix_rows(*blk))
     finally:
         if checkpoint is not None:
             checkpoint.close()
@@ -435,8 +443,8 @@ def _run_distributed(bams, rank, checkpoint_dir, resume, out,
     lo = 0
     for hi in range(1, len(chroms) + 1):
         if hi == len(chroms) or chroms[hi] != chroms[lo]:
-            out.write(format_block(chroms[lo], starts[lo:hi], ends[lo:hi],
-                                   mat[lo:hi].T.astype(np.int64)))
+            out.write(matrix_rows(chroms[lo], starts[lo:hi], ends[lo:hi],
+                                  mat[lo:hi].T.astype(np.int64)))
             lo = hi
     return 0
 

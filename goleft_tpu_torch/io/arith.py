@@ -1,6 +1,6 @@
 """Adaptive arithmetic codec (CRAM 3.1 block method 6), clean-room.
 
-A copy of the JAX package's io/arith.py on its Python path.
+A copy of the JAX package's io/arith.py, with its C fast path.
 
 CRAM 3.1's general-purpose range coder: an adaptive byte-wise
 arithmetic coder with the same meta-transform family as rANS-Nx16.
@@ -204,6 +204,11 @@ def _model_nsym(header_byte: int) -> int:
 
 def _decode_body(buf, pos: int, out_len: int, order: int,
                  rle: bool) -> bytes:
+    from . import native
+
+    fast = native.arith_decode_body(buf, pos, out_len, order, rle)
+    if fast is not None:
+        return fast
     nsym = _model_nsym(buf[pos])
     pos += 1
     rc = RangeDecoder(buf, pos)

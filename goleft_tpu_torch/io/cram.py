@@ -289,6 +289,11 @@ def rans_decode(data: bytes) -> bytes:
     if out_len == 0:
         return b""
     if order in (0, 1):
+        from . import native
+
+        fast = native.rans4x8_decode(data, 9, order, out_len)
+        if fast is not None:
+            return fast
         return (_rans_decode_0 if order == 0 else _rans_decode_1)(
             buf, 9, out_len)
     raise ValueError(f"cram: unknown rANS order {order}")

@@ -1,6 +1,6 @@
 """fqzcomp quality codec (CRAM 3.1 block method 7), clean-room.
 
-A copy of the JAX package's io/fqzcomp.py on its Python path.
+A copy of the JAX package's io/fqzcomp.py, with its C fast path.
 
 CRAM 3.1's dedicated quality-score codec: the concatenated per-record
 quality strings of a slice, compressed with the adaptive range coder
@@ -198,6 +198,12 @@ def _mix_context(p: _Params, qhist: int, remaining: int, delta: int,
 def decode(data: bytes, expected_len: int) -> bytes:
     """Decode one fqzcomp stream into ``expected_len`` quality bytes
     (the CRAM block header's raw size is authoritative)."""
+    if expected_len is not None:
+        from . import native
+
+        fast = native.fqzcomp_decode(data, expected_len)
+        if fast is not None:
+            return fast
     try:
         return _decode(data, expected_len)
     except IndexError:

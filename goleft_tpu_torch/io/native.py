@@ -92,8 +92,12 @@ def _load() -> ctypes.CDLL | None:
     for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
                  "bam_decode", "bam_segments_stream", "bam_window_reduce",
                  "bam_window_reduce_stream", "bam_window_acc_stream",
-                 "bai_scan", "format_depth_rows", "format_class_rows",
-                 "format_float_matrix_rows", "format_xy_json"):
+                 "bgzf_stream_inflate_only", "bai_scan",
+                 "rans4x8_decode", "ransnx16_decode0", "ransnx16_decode1",
+                 "arith_decode_body", "fqzcomp_decode", "tok3_assemble",
+                 "format_matrix_rows", "format_depth_rows",
+                 "format_class_rows", "format_float_matrix_rows",
+                 "format_xy_json"):
         getattr(lib, name).restype = ctypes.c_long
     return lib
 
@@ -247,6 +251,144 @@ def bam_decode(body: np.ndarray, offset: int, target_tid: int,
         return out
 
 
+def rans4x8_decode(data, pos: int, order: int,
+                   out_len: int) -> bytes | None:
+    """CRAM 4x8 rANS decode (orders 0/1) in C; None when native is
+    unavailable (callers fall back to the pure-Python decoders).
+    Raises ValueError on malformed streams / missing o1 contexts."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _as_u8(data)
+    out = np.empty(out_len, dtype=np.uint8)
+    r = lib.rans4x8_decode(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(pos),
+        ctypes.c_int(order), _ptr(out), ctypes.c_long(out_len),
+    )
+    if r == -9:
+        raise ValueError("cram: rans missing order-1 context")
+    if r < 0:
+        raise ValueError("cram: malformed rans stream")
+    return out.tobytes()
+
+
+def ransnx16_decode0(data, pos: int, out_len: int,
+                     n_states: int) -> bytes | None:
+    """rANS-Nx16 order-0 decode in C; None when native is unavailable
+    OR the stream needs the lenient pure-Python path (which also owns
+    every error message) — callers always fall back on None."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _as_u8(data)
+    out = np.empty(out_len, dtype=np.uint8)
+    r = lib.ransnx16_decode0(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(pos),
+        _ptr(out), ctypes.c_long(out_len), ctypes.c_int(n_states),
+    )
+    return out.tobytes() if r == 0 else None
+
+
+def arith_decode_body(data, pos: int, out_len: int, order: int,
+                      rle: bool) -> bytes | None:
+    """Adaptive-arithmetic coded-body decode in C (order 0/1, with or
+    without the integrated RLE run models); None → fall back to the
+    pure-Python decoder, which owns every error message."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _as_u8(data)
+    out = np.empty(out_len, dtype=np.uint8)
+    r = lib.arith_decode_body(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(pos),
+        _ptr(out), ctypes.c_long(out_len),
+        ctypes.c_int(1 if order else 0), ctypes.c_int(1 if rle else 0),
+    )
+    return out.tobytes() if r == 0 else None
+
+
+def fqzcomp_decode(data, out_len: int) -> bytes | None:
+    """fqzcomp full-stream decode in C; None → fall back to the
+    pure-Python decoder, which owns every error message (including
+    the zero-length case, whose header checks C skips)."""
+    lib = get_lib()
+    if lib is None or out_len == 0:
+        return None
+    buf = _as_u8(data)
+    out = np.empty(out_len, dtype=np.uint8)
+    r = lib.fqzcomp_decode(
+        _ptr(buf), ctypes.c_long(len(buf)), _ptr(out),
+        ctypes.c_long(out_len),
+    )
+    return out.tobytes() if r == 0 else None
+
+
+def tok3_assemble(streams: dict, n_names: int, sep: int,
+                  out_len: int) -> bytes | None:
+    """Name assembly over already-decompressed tok3 streams in C;
+    ``streams`` maps (position, field) → raw bytes. None → fall back
+    to the pure-Python assembly, which owns every error message."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    # n_names/out_len come from attacker-controlled varints; absurd
+    # values must fall back to the Python path's typed errors rather
+    # than raise OverflowError from ctypes or MemoryError from the
+    # allocation (every name contributes at least its separator, so
+    # valid inputs satisfy n_names <= out_len)
+    if not 0 <= n_names <= out_len or out_len > (1 << 40):
+        return None
+    offs = np.full(256 * 13, -1, dtype=np.int64)
+    lens = np.zeros(256 * 13, dtype=np.int64)
+    parts = []
+    off = 0
+    for (p, f), raw in streams.items():
+        if not 0 <= p < 256 or not 0 <= f < 13:
+            return None
+        slot = p * 13 + f
+        offs[slot] = off
+        lens[slot] = len(raw)
+        parts.append(raw)
+        off += len(raw)
+    blob = np.frombuffer(b"".join(parts), dtype=np.uint8) if parts \
+        else np.empty(0, dtype=np.uint8)
+    try:
+        out = np.empty(out_len, dtype=np.uint8)
+    except MemoryError:
+        # a huge declared size the host cannot hold: the Python
+        # assembly fails with its own typed error long before
+        # allocating this much
+        return None
+    r = lib.tok3_assemble(
+        _ptr(blob), offs.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.c_long(n_names), ctypes.c_ubyte(sep),
+        _ptr(out), ctypes.c_long(out_len),
+    )
+    return out.tobytes() if r == 0 else None
+
+
+def ransnx16_decode1(data, pos: int, table, table_pos: int,
+                     table_inline: bool, shift: int, out_len: int,
+                     n_states: int) -> bytes | None:
+    """rANS-Nx16 order-1 decode in C (table either inline ahead of the
+    states or in a separately decompressed buffer); None → fall back
+    to the pure-Python decoder."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _as_u8(data)
+    tbl = buf if table_inline else _as_u8(table)
+    out = np.empty(out_len, dtype=np.uint8)
+    r = lib.ransnx16_decode1(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(pos),
+        _ptr(tbl), ctypes.c_long(len(tbl)), ctypes.c_long(table_pos),
+        ctypes.c_int(1 if table_inline else 0), ctypes.c_int(shift),
+        _ptr(out), ctypes.c_long(out_len), ctypes.c_int(n_states),
+    )
+    return out.tobytes() if r == 0 else None
+
+
 def bgzf_deflate_block(chunk: bytes, level: int) -> bytes | None:
     """One complete BGZF member (header + deflate + crc/isize) for
     ``chunk`` (≤ 65280 bytes); None when native is unavailable (callers
@@ -264,6 +406,26 @@ def bgzf_deflate_block(chunk: bytes, level: int) -> bytes | None:
     if n < 0:
         return None  # fall back to the zlib path
     return out[:n].tobytes()
+
+
+def bgzf_stream_inflate_only(comp, check_crc: bool = True):
+    """Total uncompressed bytes after streaming the whole BGZF file
+    through the product ring driver with a no-op walk — isolates the
+    inflate(+CRC) floor of the fused decode stage for the bench's
+    decode-floor evidence. None when native is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    buf = _as_u8(comp)
+    total = ctypes.c_int64(0)
+    r = lib.bgzf_stream_inflate_only(
+        _ptr(buf), ctypes.c_long(len(buf)), ctypes.c_long(0),
+        ctypes.c_long(0), ctypes.c_int(1 if check_crc else 0),
+        ctypes.byref(total),
+    )
+    if r < 0:
+        raise ValueError(f"bgzf stream inflate: {_stream_err(r)}")
+    return int(total.value)
 
 
 def bai_scan(data):
@@ -295,6 +457,33 @@ def bai_scan(data):
     if n < 0:
         raise ValueError(f"bai: truncated or corrupt index ({n})")
     return {k: v[:n] for k, v in arrs.items()}
+
+
+def format_matrix_rows(chrom: str, starts: np.ndarray, ends: np.ndarray,
+                       vals: np.ndarray) -> bytes | None:
+    """'chrom\\tstart\\tend\\tv...' rows as one bytes blob; None without
+    native. vals is (n_cols, n_rows) — cohortdepth's (samples, windows)
+    layout, consumed column-major so no transpose happens anywhere."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    n_cols, n_rows = vals.shape
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    vals = np.ascontiguousarray(vals, dtype=np.int64)
+    cb = chrom.encode()
+    cap = n_rows * (len(cb) + 2 * 21 + n_cols * 21 + 2) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    w = lib.format_matrix_rows(
+        ctypes.c_char_p(cb), ctypes.c_long(len(cb)),
+        _ptr(starts, ctypes.c_int64), _ptr(ends, ctypes.c_int64),
+        _ptr(vals, ctypes.c_int64), ctypes.c_long(n_rows),
+        ctypes.c_long(n_cols), _ptr(out, ctypes.c_char),
+        ctypes.c_long(cap),
+    )
+    if w < 0:
+        raise ValueError("format_matrix_rows: capacity exceeded")
+    return out[:w].tobytes()
 
 
 def format_depth_rows(chrom: str, starts: np.ndarray, ends: np.ndarray,

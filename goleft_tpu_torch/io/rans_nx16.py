@@ -1,9 +1,9 @@
 """rANS Nx16 codec (CRAM 3.1 block method 5), clean-room.
 
-A copy of the JAX package's io/rans_nx16.py on its Python path: the
-port has no C copy of the decode loops, so ``decode`` is the host
-oracle the CUDA kernel (csrc/rans_kernel.cu) is held against, and
-``parse_nx16`` is the layout the kernel consumes. The encoders' table
+A copy of the JAX package's io/rans_nx16.py: ``decode`` (the C loops
+of csrc/fastio.cpp when the host library is loaded, else the Python
+loops) is the host oracle the CUDA kernel (csrc/rans_kernel.cu) is held
+against, and ``parse_nx16`` is the layout the kernel consumes. The encoders' table
 builders (``_rans0_table``, ``_rans1_table``) are split out for the
 vectorised fixture writer (tools/bulk_cram.py).
 
@@ -246,6 +246,11 @@ def _rans0_loop_vec(buf, pos, out_len, n_states, freqs, cum, lut):
 
 
 def _decode_rans0(buf, pos: int, out_len: int, n_states: int) -> bytes:
+    from . import native
+
+    fast = native.ransnx16_decode0(buf, pos, out_len, n_states)
+    if fast is not None:
+        return fast
     freqs, pos = _read_freqs0(buf, pos)
     cum = np.zeros(257, dtype=np.int64)
     np.cumsum(freqs, out=cum[1:])
@@ -438,6 +443,8 @@ def _rans1_loop_vec(buf, pos, out_len, n_states, shift, freqs, cums,
 
 
 def _decode_rans1(buf, pos: int, out_len: int, n_states: int) -> bytes:
+    from . import native
+
     head = buf[pos]
     pos += 1
     shift = head >> 4
@@ -453,8 +460,14 @@ def _decode_rans1(buf, pos: int, out_len: int, n_states: int) -> bytes:
         table = _decode_rans0(buf, pos, ulen, 4)
         pos += clen
         tbuf, tpos = memoryview(table), 0
+        fast = native.ransnx16_decode1(buf, pos, table, 0, False,
+                                       shift, out_len, n_states)
     else:
         tbuf, tpos = buf, pos
+        fast = native.ransnx16_decode1(buf, pos, None, 0, True,
+                                       shift, out_len, n_states)
+    if fast is not None:
+        return fast
     target = 1 << shift
     syms, freqs, cums, luts, tpos = _read_freqs1_rows(tbuf, tpos,
                                                       target)

@@ -1,6 +1,6 @@
 """Name-tokeniser codec (CRAM 3.1 block method 8), clean-room.
 
-A copy of the JAX package's io/tok3.py on its Python path.
+A copy of the JAX package's io/tok3.py, with its C fast path.
 
 CRAM 3.1's read-name codec: each name is split into typed tokens
 (alpha runs, digit runs with or without leading zeros, single chars)
@@ -276,6 +276,11 @@ def _decode(data: bytes, expected_len: int | None) -> bytes:
         raw_streams[(p, f)] = raw
         pos += clen
 
+    from . import native
+
+    fast = native.tok3_assemble(raw_streams, n_names, sep[0], ulen)
+    if fast is not None:
+        return fast
     streams = {k: _Reader(v) for k, v in raw_streams.items()}
 
     def stream(p: int, f: int) -> _Reader:

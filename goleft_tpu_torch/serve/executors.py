@@ -473,7 +473,7 @@ class CohortdepthExecutor(_Executor):
             os.path.join(self.checkpoint_root, "cohortdepth"), resume=True)
 
     def run(self, reqs: Sequence[dict]) -> list[dict]:
-        from ..commands.cohortdepth import cohort_matrix_blocks, format_block
+        from ..commands.cohortdepth import cohort_matrix_blocks, matrix_rows
 
         p0 = reqs[0]
         all_bams = [p for r in reqs for p in r["bams"]]
@@ -503,8 +503,8 @@ class CohortdepthExecutor(_Executor):
                 with _stage(self.metrics, "format"):
                     for buf, (lo, hi) in zip(bufs, zip(bounds,
                                                        bounds[1:])):
-                        buf.write(format_block(c, starts, ends,
-                                               vals[lo:hi]))
+                        buf.write(matrix_rows(c, starts, ends,
+                                              vals[lo:hi]))
         finally:
             if store is not None:
                 store.close()

@@ -1,13 +1,17 @@
 """Decode-pool sizing and the decode-thread scaling measurement, copied
 from the JAX package's utils/decode_scaling.py: ``effective_cores``,
-``auto_processes``, and the curve the bench's headline picks its pool
-size from (``measure_scaling_curve``, ``optimal_threads``)."""
+``auto_processes``, the fixture (``build_cohort``), and the curve the
+bench's headline picks its pool size from (``measure_scaling_curve``,
+``optimal_threads``) with its two-point case (``measure_scaling``)."""
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import os
+import shutil
 import time
+
+import numpy as np
 
 
 def effective_cores() -> int:
@@ -26,10 +30,52 @@ def auto_processes(cap: int = 8) -> int:
     return max(1, min(cap, effective_cores()))
 
 
+def build_cohort(tmp_dir, n_files: int = 4, ref_len: int = 2_000_000,
+                 coverage: int = 4, read_len: int = 100):
+    """Fabricate ``n_files`` identical single-chromosome BAMs+BAIs →
+    (paths, ref_len)."""
+    from ..io.bai import build_bai, write_bai
+    from ..io.bam import BamWriter
+
+    n_reads = ref_len * coverage // read_len
+    rng = np.random.default_rng(5)
+    starts = np.sort(rng.integers(0, ref_len - read_len, size=n_reads))
+    base = os.path.join(str(tmp_dir), "s0.bam")
+    with open(base, "wb") as fh:
+        with BamWriter(
+            fh, "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:"
+            f"{ref_len}\n", ["chr1"], [ref_len], level=1,
+        ) as w:
+            for i, s in enumerate(starts):
+                w.write_record(0, int(s), [(read_len, 0)], mapq=60,
+                               name=f"r{i}")
+    write_bai(build_bai(base), base + ".bai")
+    paths = [base]
+    for i in range(1, n_files):
+        p = os.path.join(str(tmp_dir), f"s{i}.bam")
+        shutil.copyfile(base, p)
+        shutil.copyfile(base + ".bai", p + ".bai")
+        paths.append(p)
+    return paths, ref_len
+
+
 def _timed(fn) -> float:
     t0 = time.perf_counter()
     fn()
     return time.perf_counter() - t0
+
+
+def measure_scaling(paths, ref_len: int, window: int = 500,
+                    repeats: int = 2):
+    """(serial_seconds, threaded_seconds, n_tasks) for one full-region
+    reduce per file, best-of-``repeats``: the two-point case of
+    :func:`measure_scaling_curve`."""
+    if not len(paths):
+        raise ValueError("measure_scaling: paths is empty — need at "
+                         "least one BAM to measure decode scaling")
+    curve = measure_scaling_curve(paths, ref_len, window, repeats,
+                                  thread_counts=[1, len(paths)])
+    return curve[1], curve[len(paths)], len(paths)
 
 
 def default_thread_counts(cores: int | None = None, n_tasks: int = 4):

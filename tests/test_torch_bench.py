@@ -8,7 +8,9 @@ sizes with ``device="cpu"``, each on the same fixture as the reference
 (the oracle): the same output bytes, or likelihoods within the
 reference's stated tolerance (5e-5 log10, XLA's inexact CPU ``exp2``),
 or the same tuples. Then the command: ``--suite-host --quick`` at toy
-sizes labels every entry cpu and writes only under ``--out-dir``; no
+sizes labels every device entry cpu (the host entries keep the JAX
+package's labels; the recovery entries are skipped without a card) and
+writes only under ``--out-dir``; no
 card and no ``--suite-host`` exits nonzero before any entry; an entry
 that raises makes the command exit nonzero.
 """
@@ -282,6 +284,35 @@ def test_host_scale_validation_entries():
 # ---------------- the command ----------------
 
 
+#: the host-service and codec entries' toy sizes
+TOY_HOST_ENTRIES = {
+    "bench_decode_thread_scaling": dict(n_files=2, ref_len=50_000),
+    "bench_cram31_codec_decode": dict(n=8192),
+    "bench_serve_throughput": dict(n_clients=2, n_requests=4,
+                                   ref_len=20_000),
+    "bench_fleet_throughput": dict(n_clients=2, n_requests=4,
+                                   ref_len=20_000),
+    "bench_cohort_resume_overhead": dict(n_samples=2, ref_len=100_000,
+                                         repeats=1),
+    "bench_wire_decode": dict(bs=2048, nb=3),
+    "bench_remote_fetch": dict(size_mb=1),
+    "bench_profiler_overhead": dict(length=100_000, reps=2),
+    "bench_memory_overhead": dict(length=100_000, reps=2),
+}
+
+#: each host entry's platform label, the JAX package's (None: it has
+#: none); the recovery entries are skipped on a host with no card
+HOST_LABELS = {
+    "torch_decode_thread_scaling": "host (no device work)",
+    "torch_cram31_codec_decode": None,
+    "torch_fleet_restart_recovery_s": "cpu",
+    "torch_fleet_failover_recovery_s": "cpu",
+    "torch_remote_fetch": "cpu",
+    "torch_profiler_overhead": None,
+    "torch_memory_overhead": None,
+}
+
+
 def _toy(monkeypatch):
     """Every entry of a --suite-host --quick run at toy size."""
     monkeypatch.setattr(bench, "COHORT_SIZES",
@@ -294,7 +325,8 @@ def _toy(monkeypatch):
                       dict(n_ix=2, chrom_lens=[1_000_000, 600_000])),
                      ("bench_pairhmm_forward", dict(n_pairs=4)),
                      ("bench_read_mapping",
-                      dict(ref_bp=10_000, n_reads=20))):
+                      dict(ref_bp=10_000, n_reads=20)),
+                     *TOY_HOST_ENTRIES.items()):
         monkeypatch.setattr(bench, name,
                             functools.partial(getattr(bench, name), **kw))
 
@@ -325,15 +357,24 @@ def test_suite_host_labels_cpu_and_writes_only_the_out_dir(
     assert set(det) == {"torch_depth_wholegenome",
                         "torch_indexcov_e2e_wholegenome",
                         "torch_cohort_e2e_device", "torch_cohort_e2e",
-                        "torch_pairhmm_forward", "torch_read_mapping"}
+                        "torch_pairhmm_forward", "torch_read_mapping",
+                        "torch_serve_throughput", "torch_fleet_throughput",
+                        "torch_cohort_resume_overhead",
+                        "torch_wire_decode", *HOST_LABELS}
     for name, entry in det.items():
         assert name.startswith("torch_") and "error" not in entry, entry
-        assert entry["platform"] == "cpu" and entry["device"] == "cpu"
+        if name in HOST_LABELS:
+            assert entry.get("platform") == HOST_LABELS[name], entry
+        else:
+            assert entry["platform"] == "cpu" and entry["device"] == "cpu"
     from goleft_tpu_torch.obs import ledger
 
     recs = ledger.read_ledger(str(cwd / "o" / "ledger.jsonl"))
     assert {r["entry"] for r in recs} == set(det) | {head["metric"]}
-    assert all(r["provenance"] == "host" for r in recs)
+    # the host entries the JAX package labels with no platform are of
+    # unknown provenance in the ledger; every other record is host
+    assert {r["entry"] for r in recs if r["provenance"] != "host"} == {
+        n for n, lab in HOST_LABELS.items() if lab is None}
 
 
 def test_no_card_and_no_suite_host_runs_no_entry(tmp_path, monkeypatch):

@@ -33,7 +33,8 @@ def _sources():
     for tool in ("bulk_bam.py", "bulk_cram.py", "rans_bench.py",
                  "pairhmm_bench.py", "sass_loops.py",
                  "cohort_bench.py", "flags_bench.py", "em_bench.py",
-                 "norm_bench.py", "swalign_bench.py", "serve_bench.py"):
+                 "norm_bench.py", "swalign_bench.py", "serve_bench.py",
+                 "bench_entries.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -573,7 +574,24 @@ def test_cpu_bench_suite_host_run_loads_no_jax(tmp_path):
                           dict(n_ix=2, chrom_lens=[800_000])),
                          ("bench_pairhmm_forward", dict(n_pairs=2)),
                          ("bench_read_mapping",
-                          dict(ref_bp=8_000, n_reads=10))):
+                          dict(ref_bp=8_000, n_reads=10)),
+                         ("bench_decode_thread_scaling",
+                          dict(n_files=2, ref_len=50_000)),
+                         ("bench_cram31_codec_decode", dict(n=4096)),
+                         ("bench_serve_throughput",
+                          dict(n_clients=2, n_requests=2,
+                               ref_len=20_000)),
+                         ("bench_fleet_throughput",
+                          dict(n_clients=2, n_requests=2,
+                               ref_len=20_000)),
+                         ("bench_cohort_resume_overhead",
+                          dict(n_samples=2, ref_len=100_000, repeats=1)),
+                         ("bench_wire_decode", dict(bs=1024, nb=3)),
+                         ("bench_remote_fetch", dict(size_mb=1)),
+                         ("bench_profiler_overhead",
+                          dict(length=100_000, reps=1)),
+                         ("bench_memory_overhead",
+                          dict(length=100_000, reps=1))):
             setattr(bench, name,
                     functools.partial(getattr(bench, name), **kw))
         rc = cli.main(["--metrics-out", "m.json", "bench", "--suite-host",
@@ -594,7 +612,8 @@ def test_cpu_bench_suite_host_run_loads_no_jax(tmp_path):
     man = load_manifest(str(tmp_path / "m.json"))
     assert man["command"] == "bench" and man["exit_code"] == 0
     assert man["backend"]["platform"] == "cpu"
-    assert set(man["kernel_launches"]) >= {"depth", "pairhmm", "swalign"}
+    assert set(man["kernel_launches"]) >= {"depth", "pairhmm", "swalign",
+                                           "rans"}
 
 
 def test_cpu_trace_out_run_loads_no_jax(tmp_path):
@@ -828,7 +847,8 @@ def test_cli_lists_depth():
 
 #: the modules of the processes that never touch the card: the fleet's
 #: router and supervisor, the federation, the HTTP clients of the
-#: observability surfaces, and what they share with the device commands
+#: observability surfaces, and what they share with the device commands;
+#: the host codecs, and the bench (torch loads inside its entries)
 TORCH_FREE_MODULES = [
     "goleft_tpu_torch.fleet", "goleft_tpu_torch.fleet.federation",
     "goleft_tpu_torch.fleet.cachesync",
@@ -846,6 +866,11 @@ TORCH_FREE_MODULES = [
     "goleft_tpu_torch.analysis.cli", "goleft_tpu_torch.plan.lint",
     "goleft_tpu_torch.commands.perf", "goleft_tpu_torch.obs.ledger",
     "goleft_tpu_torch.obs.sentinel",
+    "goleft_tpu_torch.io.remote_stub", "goleft_tpu_torch.io.native",
+    "goleft_tpu_torch.io.cram", "goleft_tpu_torch.io.rans_nx16",
+    "goleft_tpu_torch.io.arith", "goleft_tpu_torch.io.fqzcomp",
+    "goleft_tpu_torch.io.tok3", "goleft_tpu_torch.utils.decode_scaling",
+    "goleft_tpu_torch.bench",
 ]
 
 
