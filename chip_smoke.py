@@ -9,7 +9,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 2. builds the five hand-written kernels (csrc/depth_kernel.cu,
    csrc/pairhmm_kernel.cu, csrc/rans_kernel.cu, csrc/indexcov_norm.cu,
    csrc/swalign_kernel.cu) from the checkout, one nvcc each, started
-   together, and prints the build seconds and the ptxas reports;
+   together, and prints the build seconds and the ptxas reports; beside
+   the builds and phases 3-3b, the script's first probe of the card
+   (goleft_tpu_torch/utils/device_guard.py: a child process that brings
+   CUDA up and runs one op), whose cached success, kept for the whole
+   run (GOLEFT_TPU_PROBE_TTL_SECONDS=3600), stands for every device
+   command the script starts;
 3. holds the depth kernel against its plain PyTorch version on the card at
    one full production shard (10 Mb, 2,000,000 segments of 150 bp, window
    250, max mean depth 100, cap 2600), on both wires and on the u16 wire
@@ -40,6 +45,16 @@ Run from the root of a checkout, on a machine with one CUDA card:
    fresh process (launch counts start at 0 there and come back in its
    ``--metrics-out`` run manifest) and compares both BED files byte for byte
    with an independent numpy oracle;
+4b. beside phase 5, the bring-up guard and obs/provenance.py: with the
+   probe's caches cleared, ``depth -b`` over chr1:0-1,000,000 of that BAM
+   in a fresh process (the probe's child, CUDA's bring-up under the
+   watchdog, the oracle's rows), then again (the probe cached); a run
+   whose probe sleeps past a 3 s timeout must exit 1 with one stderr
+   line naming where its traceback went, no kernel launched, within 13
+   s; ``backend_provenance("cuda")`` must name the card as nvidia-smi
+   does, and both runs' manifests and the traced run's device spans carry
+   its values; prints the probe's first and cached costs and the
+   bring-up seconds;
 5. holds the pair-HMM kernel against its plain version on the card, f32
    rescaled and f64 unscaled, contribs and shifts bitwise: one bucket of
    4,096 pairs of 150 bp reads (quals 2-41, mismatches, indels, N) x
@@ -1005,6 +1020,169 @@ def e2e_phase(root: str, workdir: str):
             "gbases_per_s_process": E2E_LEN / wall / 1e9,
             "launches": launches, "stage_seconds": stages,
             "backend": rep["backend"]}, (bam, fa, want_d, want_c)
+
+
+# ---- the bring-up guard and provenance (phase 4b) --------------------
+
+GUARD_REGION = 1_000_000  # the depth runs' bed region: chr1:0-1,000,000
+GUARD_HANG_S = 3  # the hung probe's timeout
+GUARD_HANG_SLACK_S = 10  # interpreter start-up and the manifest, at most
+#: a probe command line standing in for a wedged card: a child that
+#: sleeps past the timeout (and exits on its own 3 s later)
+_GUARD_HANG_CLI = """\
+import functools, sys
+sys.path.insert(0, {root!r})
+from goleft_tpu_torch.utils import device_guard as g
+g.ensure_card = functools.partial(g.ensure_card, probe_argv=[
+    sys.executable, "-c",
+    g.arm_traceback_snippet("import time; time.sleep({sleep})", {t})])
+from goleft_tpu_torch import cli
+sys.exit(cli.main(sys.argv[1:]))
+"""
+
+
+def first_probe() -> dict:
+    """The script's first probe of the card (utils/device_guard.py), run
+    beside the kernel builds; the device commands this script starts
+    find it in the probe's cache → {mode, seconds}."""
+    from goleft_tpu_torch.utils import device_guard
+
+    t0 = time.perf_counter()
+    mode = device_guard.ensure_card()
+    return {"mode": mode, "seconds": time.perf_counter() - t0}
+
+
+def _guard_depth(root, workdir, name, env, bam, fa, bed, trace=False):
+    """``depth -b`` on phase 4's BAM over GUARD_REGION in a fresh process
+    → (result, its manifest)."""
+    prefix = os.path.join(workdir, f"guard_{name}")
+    report = prefix + ".json"
+    args = ["--metrics-out", report]
+    if trace:
+        args += ["--trace-out", prefix + ".trace.json"]
+    r, wall = _run_cli(root, args + [
+        "depth", "--prefix", prefix, "-r", fa, "-w", str(WINDOW), "-m",
+        str(MAX_MEAN), "-b", bed, bam], env)
+    if r.returncode != 0:
+        raise AssertionError(f"guard phase: depth ({name}) failed "
+                             f"({r.returncode}):\n{r.stderr[-4000:]}")
+    rep, _, _ = read_manifest(report, "depth")
+    return {"wall_s": wall, "prefix": prefix,
+            "counters": rep["metrics"]["counters"],
+            "spans": {k: v["seconds"] for k, v in rep["spans"].items()},
+            "launches": rep["kernel_launches"]["depth"]}, rep
+
+
+def guard_phase(root: str, workdir: str, depth_fixture) -> dict:
+    """Phase 4b: the bring-up guard and obs/provenance.py on the card.
+    With the probe's caches cleared, ``depth -b`` on phase 4's BAM
+    probes the card (a child process), brings CUDA up under the watchdog
+    and writes the oracle's rows; a second run finds the probe cached;
+    a run whose probe sleeps past GUARD_HANG_S must exit 1 with one
+    stderr line, no kernel launched, within GUARD_HANG_S +
+    GUARD_HANG_SLACK_S. ``backend_provenance("cuda")`` must name the card
+    as nvidia-smi does, and the manifest and the device spans of the
+    depth run carry its values."""
+    import torch
+
+    from goleft_tpu_torch.obs.provenance import (backend_provenance,
+                                                nvidia_smi_line)
+    from goleft_tpu_torch.utils import device_guard
+
+    t_phase = time.perf_counter()
+    bam, fa, want_d, _ = depth_fixture
+    bed = os.path.join(workdir, "guard.bed")
+    with open(bed, "w") as fh:
+        fh.write(f"chr1\t0\t{GUARD_REGION}\n")
+    want_rows = "".join(want_d.splitlines(True)[:GUARD_REGION // WINDOW])
+    env = dict(os.environ, PYTHONPATH=root)
+    env.pop("GOLEFT_TPU_PROBE", None)
+    for kind in ("ok", "fail"):
+        try:
+            os.remove(device_guard._probe_cache_path(kind))
+        except FileNotFoundError:
+            pass
+    runs = {}
+    for name in ("first", "cached"):
+        run, rep = _guard_depth(root, workdir, name, env, bam, fa, bed,
+                                trace=name == "cached")
+        c = run["counters"]
+        probed = (c.get("device.probe_total", 0),
+                  c.get("device.probe_cached_total", 0))
+        assert probed == ((1, 0) if name == "first" else (0, 1)), \
+            f"guard phase: the {name} run's probe counters {probed}"
+        assert run["launches"] >= 1, f"guard phase: {name} run launched " \
+            "no depth kernel"
+        with open(run["prefix"] + ".depth.bed") as fh:
+            _same_bytes(f"guard phase {name} depth.bed (against the "
+                        "oracle's rows)", fh.read(), want_rows)
+        run["probe_s"] = run["spans"].get("device-probe")
+        run["bringup_s"] = run["spans"]["device-bringup"]
+        run["backend"] = rep["backend"]
+        runs[name] = run
+    # the card's provenance, as the depth runs' manifests and spans say it
+    prov = backend_provenance("cuda")
+    smi = nvidia_smi_line()
+    assert prov["platform"] == "gpu" and prov["device_count"] >= 1, prov
+    assert prov["device_kind"] == torch.cuda.get_device_name(0), prov
+    assert prov["nvidia_smi"] == smi and smi.startswith(prov["device"]), \
+        (prov, smi)
+    for name, run in runs.items():
+        assert run["backend"] == prov, (name, run["backend"], prov)
+    tr = load_trace(runs["cached"]["prefix"] + ".trace.json")
+    assert tr["device"], "guard phase: the traced run has no device span"
+    for e in tr["device"]:
+        got = {k: e["args"][k] for k in ("platform", "device_kind",
+                                         "device_count")}
+        assert got == {k: prov[k] for k in got}, (e["name"], got)
+    # a probe that hangs: one line, exit 1, no kernel, on time
+    runner = os.path.join(workdir, "guard_hang.py")
+    with open(runner, "w") as fh:
+        fh.write(_GUARD_HANG_CLI.format(root=root, sleep=GUARD_HANG_S + 3,
+                                        t=GUARD_HANG_S))
+    report = os.path.join(workdir, "guard_hang.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, runner, "--metrics-out", report, "depth",
+         "--prefix", os.path.join(workdir, "guard_hang"), "-r", fa, "-b",
+         bed, bam], cwd=root, capture_output=True, text=True,
+        env=dict(env, GOLEFT_TPU_DEVICE_WATCHDOG_SECONDS=str(GUARD_HANG_S)))
+    hang_s = time.perf_counter() - t0
+    lines = r.stderr.strip().splitlines()
+    assert r.returncode == 1 and len(lines) == 1 \
+        and f"hung past {GUARD_HANG_S}s" in lines[0], (r.returncode,
+                                                      r.stderr[-2000:])
+    assert hang_s < GUARD_HANG_S + GUARD_HANG_SLACK_S, hang_s
+    from goleft_tpu_torch.obs.manifest import load_manifest
+
+    hrep = load_manifest(report)
+    assert not any(hrep["kernel_launches"].values()), hrep["kernel_launches"]
+    assert "error" in hrep["backend"], hrep["backend"]
+    tail = lines[0].rsplit(" ", 1)[-1]
+    with open(tail) as fh:
+        assert "Timeout" in fh.read(), "no traceback in the hung probe's tail"
+    os.remove(tail)
+    t0 = time.perf_counter()
+    cached = device_guard.ensure_card()
+    cached_s = time.perf_counter() - t0
+    assert cached == "cached", cached
+    first, again = runs["first"], runs["cached"]
+    log(f"guard: first depth -b run {first['wall_s']:.3f} s with its probe "
+        f"{first['probe_s']:.3f} s (a child: torch import, CUDA init, one "
+        f"op) and CUDA bring-up under the watchdog {first['bringup_s']:.3f} "
+        f"s; the second {again['wall_s']:.3f} s, probe cached (the check "
+        f"{cached_s * 1e3:.3f} ms in this process), bring-up "
+        f"{again['bringup_s']:.3f} s; a probe hung past {GUARD_HANG_S} s: "
+        f"exit 1 in {hang_s:.3f} s, one line, no launch: {lines[0]}")
+    log("provenance: backend_provenance('cuda') = " + json.dumps(prov)
+        + f"; the manifests and {len(tr['device'])} device spans agree")
+    return {"first": {k: first[k] for k in ("wall_s", "probe_s",
+                                            "bringup_s", "launches")},
+            "cached": {k: again[k] for k in ("wall_s", "probe_s",
+                                             "bringup_s", "launches")},
+            "cached_check_s": cached_s, "hang_s": hang_s,
+            "hang_line": lines[0], "provenance": prov,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 # ---- pair-HMM phases ---------------------------------------------------
@@ -5567,7 +5745,7 @@ def bench_phase(root: str, workdir: str) -> dict:
     """Phase 22: ``bench --quick`` in a fresh process, its records
     through ``perf``, and ``lint`` over the port; no file of the
     repository's own records may change."""
-    from goleft_tpu_torch.device import nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
 
     t_phase = time.perf_counter()
     before = {f: _sha256(os.path.join(root, f)) for f in GUARDED_FILES}
@@ -5726,7 +5904,8 @@ def main(argv=None) -> int:
         return 2
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
-    from goleft_tpu_torch.device import card_provenance, nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import (card_provenance,
+                                                nvidia_smi_line)
     from goleft_tpu_torch.ops import depth_kernel as dk
     from goleft_tpu_torch.ops import norm_kernel as nk
     from goleft_tpu_torch.ops import pairhmm_kernel as pk
@@ -5737,6 +5916,12 @@ def main(argv=None) -> int:
     log("provenance: " + json.dumps(prov))
     dev = torch.device("cuda", 0)
 
+    # one probe of the card stands for every device command this script
+    # starts (the probe's success cache outlives the run); it runs beside
+    # the kernel builds and phases 3 and 3b, which start no command
+    os.environ["GOLEFT_TPU_PROBE_TTL_SECONDS"] = "3600"
+    os.environ.pop("GOLEFT_TPU_PROBE", None)
+    probe_fx = _BG.submit(first_probe)
     t0 = time.perf_counter()
     built = build_kernels({"depth": dk, "pairhmm": pk, "rans": rk,
                            "indexcov_norm": nk, "swalign": sk})
@@ -5785,8 +5970,13 @@ def main(argv=None) -> int:
         # each process would compile torch's modules again, ~2 s apiece
         os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
         os.environ["PYTHONPYCACHEPREFIX"] = os.path.join(workdir, "pycache")
+        results["first_probe"] = fp = probe_fx.result()
+        log(f"first probe of the card, beside the builds and phases 3-3b: "
+            f"{fp['mode']} in {fp['seconds']:.3f} s")
         results["e2e"], depth_fixture = e2e_phase(root, workdir)
         e2e = results["e2e"]
+        # phase 4b's guard and provenance runs go on beside phase 5
+        guard_fx = _BG.submit(guard_phase, root, workdir, depth_fixture)
         main_wire = kres["u16"]  # the packed wire is the main path's
         depth.update(status="pass", launches=e2e["launches"],
                      max_abs_err=kres["max_abs_err"],
@@ -5803,6 +5993,7 @@ def main(argv=None) -> int:
         results["pairhmm_kernel"] = pres = pairhmm_kernel_phase(dev,
                                                                 plain_pool)
         e2e["import_breakdown"] = e2e["import_breakdown"].result()
+        results["guard"] = guard_fx.result()
         log("import breakdown (python -X importtime, a second process "
             "beside phase 5, cumulative seconds): "
             + json.dumps(e2e["import_breakdown"]))

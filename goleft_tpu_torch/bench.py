@@ -147,7 +147,7 @@ def provenance(dev) -> dict:
     limit."""
     import torch
 
-    from .device import nvidia_smi_line
+    from .obs.provenance import nvidia_smi_line
 
     cuda = dev.type == "cuda"
     return {"platform": "cuda" if cuda else "cpu",

@@ -1,8 +1,8 @@
 """goleft-tpu-torch: subcommand dispatcher.
 
 The counterpart of the JAX package's cli.py: a name → (help, main)
-table; unknown or missing subcommands print the sorted table. Subcommands
-register here as their slices of the port land.
+table; a missing subcommand prints the sorted table, and an unknown one
+a close match ("did you mean depth?") or, with none close, the table.
 
 Global flags, valid before or after the subcommand name (stripped here,
 so no command declares them), as the JAX package's cli.py has them:
@@ -98,7 +98,8 @@ PROGS = {
     "covstats": ("coverage and insert-size statistics by sampling",
                  _lazy(".commands.covstats"), False),
     "dcnv": ("GC-debias + normalize a depth matrix",
-             _lazy(".commands.dcnv_cmd"), True),
+             _lazy(".commands.dcnv_cmd"),
+             _lazy_device(".commands.dcnv_cmd")),
     "depth": ("windowed depth + callable regions on the CUDA card",
               _lazy(".commands.depth"), True),
     "depthwed": ("matricize depth bed files to n-sites * n-samples",
@@ -214,11 +215,14 @@ def _device_of(prog: str, argv: list[str]) -> str | None:
     return "cuda" if dev else None
 
 
-def _run_command(prog: str, argv: list[str]) -> int:
+def _run_command(prog: str, argv: list[str], run: dict) -> int:
     """Dispatch with the reference's error contract: 0 / 1 on bad input
     or a missing card (one clean line) / 141 on a closed stdout. A world
     of processes (``GOLEFT_TPU_COORDINATOR``) is joined first, before
-    any device bring-up; without one this imports no torch."""
+    any device bring-up; without one this imports no torch. A command on
+    the card probes it first (:func:`_probe_card`, which notes a hung
+    probe in ``run``) and brings CUDA up under the watchdog before it
+    runs."""
     from .parallel.mesh import init_distributed
 
     if os.environ.get("GOLEFT_TPU_COORDINATOR"):
@@ -227,13 +231,20 @@ def _run_command(prog: str, argv: list[str]) -> int:
 
         IMPORT_SECONDS["torch.distributed"] = time.perf_counter() - t0
     init_distributed()
-    if _device_of(prog, argv) is not None:
-        t0 = time.perf_counter()
-        from . import device  # noqa: F401 (the first import of torch)
-
-        IMPORT_SECONDS[".device"] = time.perf_counter() - t0
+    on = _device_of(prog, argv)
     sys.argv = [f"goleft-tpu-torch {prog}"] + argv
     try:
+        if on == "cuda":
+            _probe_card(run)
+        if on is not None:
+            t0 = time.perf_counter()
+            from . import device  # noqa: F401 (the first import of torch)
+
+            IMPORT_SECONDS[".device"] = time.perf_counter() - t0
+        if on == "cuda":
+            from .utils.device_guard import devices_with_watchdog
+
+            devices_with_watchdog()
         ret = PROGS[prog][1](argv)
         sys.stdout.flush()
     except BrokenPipeError:
@@ -251,6 +262,21 @@ def _run_command(prog: str, argv: list[str]) -> int:
     return int(ret or 0)
 
 
+def _probe_card(run: dict) -> None:
+    """A card command's bring-up check, before this process imports
+    torch: the card is probed in a child process (utils/device_guard.py,
+    cached; a failed or hung probe raises NoCudaDevice with one line).
+    A hung probe's line goes into ``run["probe_hung"]``: the card may be
+    wedged, so the run's manifest then asks CUDA nothing."""
+    from .utils import device_guard
+
+    try:
+        device_guard.ensure_card()
+    except device_guard.ProbeHung as e:
+        run["probe_hung"] = str(e)
+        raise
+
+
 def _kernel_launches() -> dict:
     from .ops import (depth_kernel, norm_kernel, pairhmm_kernel, rans_kernel,
                       swalign_kernel)
@@ -261,25 +287,30 @@ def _kernel_launches() -> dict:
 
 
 def _write_manifest(path: str, prog: str, argv: list[str], rc: int,
-                    seconds: float, trace_id: str | None) -> None:
+                    seconds: float, trace_id: str | None,
+                    probe_hung: str | None = None) -> None:
     """A device command's manifest carries the card's provenance and the
     kernels' launch counts; a host command launches no kernel and its
-    manifest names the host only (neither loads torch)."""
+    manifest names the host only (neither loads torch). When the card's
+    probe hung, the backend block is the reference's ``{"error": ...}``
+    record with the guard's line, and no kernel module is loaded."""
     from .io import native
     from .obs.manifest import HOST_BACKEND, write_manifest
 
     device = _device_of(prog, argv)
-    uses_device = device is not None
+    # a card whose probe hung is not asked again, and no kernel ran
+    launched = device is not None and probe_hung is None
+    backend = (HOST_BACKEND if device is None
+               else {"error": probe_hung} if probe_hung else None)
     try:
         write_manifest(
             path, argv=[f"goleft-tpu-torch {prog}"] + argv,
             trace_id=trace_id,
             spans={f"run.{prog}": {"seconds": seconds, "calls": 1}},
-            device=device,
-            backend=None if uses_device else HOST_BACKEND,
+            device=device, backend=backend,
             extra={"command": prog, "exit_code": rc,
                    "import_seconds": sum(IMPORT_SECONDS.values()),
-                   "kernel_launches": (_kernel_launches() if uses_device
+                   "kernel_launches": (_kernel_launches() if launched
                                        else {}),
                    "native_io": native.get_lib() is not None})
     except OSError as e:
@@ -302,8 +333,17 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     prog = argv[0]
     if prog not in PROGS:
-        print(f"unknown subcommand: {prog}\n", file=sys.stderr)
-        print(usage(), file=sys.stderr)
+        # a close match is almost always a typo: suggest it in place of
+        # the table, which still prints when no name is close
+        import difflib
+
+        close = difflib.get_close_matches(prog, PROGS, n=1, cutoff=0.6)
+        if close:
+            print(f"unknown subcommand: {prog} — did you mean "
+                  f"{close[0]}?", file=sys.stderr)
+        else:
+            print(f"unknown subcommand: {prog}\n", file=sys.stderr)
+            print(usage(), file=sys.stderr)
         return 1
 
     from . import obs
@@ -319,12 +359,13 @@ def main(argv: list[str] | None = None) -> int:
         obs.set_device_events(True)
     trace_id = None
     rc = 1
+    run: dict = {}
     t0 = time.perf_counter()
     try:
         with obs.trace(f"run.{prog}", kind="cli",
                        argv=" ".join(argv[1:])) as root:
             trace_id = root.trace_id
-            rc = _run_command(prog, argv[1:])
+            rc = _run_command(prog, argv[1:], run)
             root.attrs["exit_code"] = rc
         return rc
     finally:
@@ -338,7 +379,8 @@ def main(argv: list[str] | None = None) -> int:
                       f"{e}", file=sys.stderr)
         if gopts["metrics_out"]:
             _write_manifest(gopts["metrics_out"], prog, argv[1:], rc,
-                            time.perf_counter() - t0, trace_id)
+                            time.perf_counter() - t0, trace_id,
+                            run.get("probe_hung"))
 
 
 if __name__ == "__main__":

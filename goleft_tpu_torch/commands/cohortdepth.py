@@ -209,8 +209,13 @@ def cohort_matrix_blocks(bams: list[str], reference: str | None = None,
     depth_engines = []
     if engine == "device":
         max_span = max(e - (s // window) * window for _, s, e in regions)
-        # the caller's device or list, else every visible card
-        devs = resolve_devices(devices, asked)
+        # the caller's device or list, else every visible card, found
+        # under the bring-up watchdog (the reference's, at its device
+        # engine)
+        from ..utils.device_guard import devices_with_watchdog
+
+        devs = devices_with_watchdog(
+            discover=lambda: resolve_devices(devices, asked))
         depth_engines = [DepthEngine(window, 4, 0, mapq, max_span=max_span,
                                      device=d) for d in devs]
     tid_maps = [{n: i for i, n in enumerate(h.header.ref_names)}

@@ -79,6 +79,12 @@ def run_dcnv(matrix_path: str, fasta: str, window: int = 9, out=None,
     return norm
 
 
+def run_device(argv) -> str:
+    """The device dcnv runs on, whatever its argv: the CPU (its path is
+    host numpy), so the CLI probes no card for it."""
+    return "cpu"
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(
         "goleft-tpu-torch dcnv",

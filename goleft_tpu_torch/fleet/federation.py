@@ -80,6 +80,7 @@ from ..obs.fleetplane import (
 )
 from ..obs.logging import get_logger
 from ..obs.metrics import MetricsRegistry
+from ..serve.server import LISTEN_BACKLOG
 from .admission import QuotaExceeded
 from .router import HashRing, request_affinity_key
 
@@ -1069,6 +1070,7 @@ class _FederationServer(ThreadingHTTPServer):
     daemon_threads = False
     block_on_close = True
     allow_reuse_address = True
+    request_queue_size = LISTEN_BACKLOG
 
 
 def make_federation_server(app: FederationRouter,

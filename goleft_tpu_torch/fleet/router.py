@@ -69,6 +69,7 @@ from ..obs.fleetplane import (
 )
 from ..obs.logging import get_logger
 from ..obs.metrics import MetricsRegistry
+from ..serve.server import LISTEN_BACKLOG
 from .admission import (
     FairScheduler, QuotaExceeded, QuotaTable, SchedulerTimeout,
 )
@@ -1399,6 +1400,7 @@ class _RouterServer(ThreadingHTTPServer):
     daemon_threads = False
     block_on_close = True
     allow_reuse_address = True
+    request_queue_size = LISTEN_BACKLOG
 
 
 def make_router_server(app: RouterApp, host: str = "127.0.0.1",

@@ -4,6 +4,13 @@ Builds ``build/torch/libgoleftio.so`` with g++ on first use and falls
 back to the pure-Python codecs on any failure (missing toolchain, build
 error). The native calls release the GIL, so the shard-decode thread
 pool scales.
+
+``GOLEFT_TPU_TORCH_NATIVE_LIB`` names a library to load in its place, a
+sanitizer build from ``tools/native_sanitize.py``: it is loaded as named,
+never built or replaced, and a library that does not load raises. The
+name is the port's own, so a test that holds the port against the JAX
+package's ``goleft_tpu.io.native`` (which reads ``GOLEFT_TPU_ASAN_LIB``)
+still loads each package's own library.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ _tried = False
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(_PKG, "csrc", "fastio.cpp")
 LIB = os.path.join(os.path.dirname(_PKG), "build", "torch", "libgoleftio.so")
+#: the environment variable naming a library to load in place of LIB
+OVERRIDE_ENV = "GOLEFT_TPU_TORCH_NATIVE_LIB"
 
 
 def _build(src: str, out: str) -> bool:
@@ -76,19 +85,24 @@ def get_lib() -> ctypes.CDLL | None:
 
 
 def _load() -> ctypes.CDLL | None:
-    stale = not os.path.exists(LIB) or (
-        os.path.getmtime(SRC) > os.path.getmtime(LIB))
-    if stale and not _build(SRC, LIB):
-        return None
-    try:
-        lib = ctypes.CDLL(LIB)
-    except OSError as e:
-        # a library built on another host (copied build tree) may
-        # name shared objects this host lacks: build it here
-        if stale or not _build(SRC, LIB):
-            log.warning("native load failed: %s", e)
+    override = os.environ.get(OVERRIDE_ENV)
+    if override:
+        # OSError when it does not load: a run asked for this library
+        lib = ctypes.CDLL(override)
+    else:
+        stale = not os.path.exists(LIB) or (
+            os.path.getmtime(SRC) > os.path.getmtime(LIB))
+        if stale and not _build(SRC, LIB):
             return None
-        lib = ctypes.CDLL(LIB)
+        try:
+            lib = ctypes.CDLL(LIB)
+        except OSError as e:
+            # a library built on another host (copied build tree) may
+            # name shared objects this host lacks: build it here
+            if stale or not _build(SRC, LIB):
+                log.warning("native load failed: %s", e)
+                return None
+            lib = ctypes.CDLL(LIB)
     for name in ("bgzf_scan", "bgzf_inflate_range", "bgzf_deflate_block",
                  "bam_decode", "bam_segments_stream", "bam_window_reduce",
                  "bam_window_reduce_stream", "bam_window_acc_stream",

@@ -10,8 +10,6 @@ device events are on.
 
 from __future__ import annotations
 
-import threading
-
 from .logging import configure as configure_logging, get_logger
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry, REGISTRY,
                       get_registry)
@@ -62,32 +60,13 @@ def set_device_events(enabled: bool) -> None:
     TRACER.device_events = bool(enabled)
 
 
-_attrs_lock = threading.Lock()
-_attrs_by_type: dict[str, dict] = {}
-
-
-def _device_attrs(device_type: str) -> dict:
-    """platform and device kind from ``device.backend_provenance``, once
-    per device type (the card's provenance asks nvidia-smi)."""
-    with _attrs_lock:
-        hit = _attrs_by_type.get(device_type)
-    if hit is None:
-        from ..device import backend_provenance
-
-        prov = backend_provenance(device_type)
-        hit = {"platform": prov["platform"],
-               "device_kind": prov["device_kind"],
-               "device_count": prov["device_count"]}
-        with _attrs_lock:
-            _attrs_by_type[device_type] = hit
-    return dict(hit)
-
-
 def device_span(name: str, device_type: str = "cuda", **attrs):
     """A ``category="device"`` span carrying the platform and device
     kind of ``device_type``: for a site that waits on its own work."""
+    from .provenance import device_span_attrs
+
     return TRACER.span(name, category="device",
-                       **_device_attrs(device_type), **attrs)
+                       **device_span_attrs(device_type), **attrs)
 
 
 def _tensor_device(obj):

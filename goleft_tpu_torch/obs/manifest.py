@@ -6,13 +6,16 @@ per invocation, of the same schema (``goleft-tpu.run-manifest/1.3``) and
 ledger's ingestion read it as they read the reference's. Its blocks:
 
 - ``env``: the host and the ``GOLEFT_TPU_*`` / ``CUDA_VISIBLE_DEVICES``
-  knobs (:func:`env_provenance`);
-- ``backend``: ``device.backend_provenance()``, with ``platform`` "gpu"
-  on the card and "cpu" when the run was asked onto the CPU or no card
-  is visible: a "cpu" manifest is never device evidence;
+  knobs (obs/provenance.py's ``env_provenance``);
+- ``backend``: obs/provenance.py's ``backend_provenance()``, with
+  ``platform`` "gpu" on the card and "cpu" when the run was asked onto
+  the CPU or no card is visible: a "cpu" manifest is never device
+  evidence;
 - ``spans``: ``{name: {seconds, calls}}``, the shape of the reference's
   ``Tracer.summary``; the port fills it from utils/profiling.py's stage
-  totals and the caller's root span (the CLI's ``run.<command>``);
+  totals and the caller's root span (the CLI's ``run.<command>``), and
+  ``spans_dropped`` / ``spans_truncated`` say whether the tracer's ring
+  evicted any;
 - ``metrics``: the counter registry's snapshot;
 - ``trace_id``: the run's trace id (the CLI's ``run.<command>`` root,
   as in the trace ``--trace-out`` writes), else a fresh hex id.
@@ -27,6 +30,8 @@ import datetime
 import json
 import os
 import secrets
+
+from .provenance import backend_provenance, env_provenance
 
 #: keys every manifest must carry (the reference's contract)
 REQUIRED_KEYS = ("schema", "ts", "argv", "env", "backend", "spans",
@@ -53,29 +58,6 @@ def parse_schema_version(schema: str) -> tuple[int, int]:
             f"unparseable run-manifest version: {schema!r}") from None
 
 
-def env_provenance() -> dict:
-    """Host and environment block of the manifest."""
-    import platform as _platform
-    import sys
-
-    try:
-        cores = len(os.sched_getaffinity(0))
-    except (AttributeError, OSError):
-        cores = os.cpu_count()
-    rec = {
-        "python": sys.version.split()[0],
-        "machine": _platform.machine(),
-        "node": _platform.node(),
-        "effective_cores": cores,
-        "pid": os.getpid(),
-    }
-    knobs = {k: v for k, v in os.environ.items()
-             if k.startswith(("GOLEFT_TPU_", "CUDA_VISIBLE_DEVICES"))}
-    if knobs:
-        rec["env_knobs"] = knobs
-    return rec
-
-
 #: the backend block of a host command's manifest (the host tools and
 #: the fleet tier run no kernel and never load torch)
 HOST_BACKEND = {"platform": "cpu", "device_kind": "cpu", "device_count": 1,
@@ -94,10 +76,9 @@ def build_manifest(argv: list[str] | None = None,
     command, which then loads no torch)."""
     from ..utils.profiling import process_spans
     from .metrics import get_registry
+    from .tracing import get_tracer
 
     if backend is None:
-        from ..device import backend_provenance
-
         backend = backend_provenance(device)
 
     doc = {
@@ -109,6 +90,10 @@ def build_manifest(argv: list[str] | None = None,
         "backend": dict(backend),
         "spans": dict(sorted({**process_spans(), **(spans or {})}
                              .items())),
+        # the reference's: spans the tracer's ring evicted, and whether
+        # any were
+        "spans_dropped": get_tracer().spans_dropped,
+        "spans_truncated": get_tracer().spans_dropped > 0,
         "metrics": get_registry().snapshot(),
         "trace_id": trace_id or secrets.token_hex(8),
     }

@@ -610,12 +610,19 @@ class _Handler(BaseHTTPRequestHandler):
         self._respond(code, body)
 
 
+#: the listen backlog of the port's HTTP servers (serve, the fleet router,
+#: the federation): socketserver's default of 5 resets the connections of
+#: a burst of concurrent clients that arrives while the accept loop waits
+LISTEN_BACKLOG = 128
+
+
 class _Server(ThreadingHTTPServer):
     # join in-flight handler threads on server_close(): the drain path
     # must let queued work finish, not orphan it mid-response
     daemon_threads = False
     block_on_close = True
     allow_reuse_address = True
+    request_queue_size = LISTEN_BACKLOG
 
 
 def make_server(app: ServeApp, host: str = "127.0.0.1",

@@ -357,8 +357,9 @@ def test_permanent_decode_fault_with_checkpoint_as_jax(tmp_path):
 
 
 _CPU_CLI = """\
-import sys
+import os, sys
 sys.path.insert(0, {root!r})
+os.environ["GOLEFT_TPU_PROBE"] = "0"  # no card to probe: run on the CPU
 import goleft_tpu_torch.device as d
 _r = d.resolve_device
 d.resolve_device = lambda device=None: _r("cpu" if device is None

@@ -188,6 +188,9 @@ def cpu_cli(monkeypatch):
         monkeypatch.setattr(mod, "resolve_device", cpu)
     for mod in (tcmd, tcd):
         monkeypatch.setattr(mod, "resolve_devices", cpus)
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     return cli.main
 
 

@@ -432,6 +432,9 @@ def test_cli_runs_cohortscan(cohort, tmp_path, monkeypatch):
 
     monkeypatch.setattr(tscan, "resolve_device",
                         lambda d=None: tdev.resolve_device("cpu"))
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     ref = str(tmp_path / "ref" / "out")
     got = str(tmp_path / "port" / "out")
     man = str(tmp_path / "m.json")

@@ -63,6 +63,9 @@ def cpu_cli(monkeypatch):
     cpu = lambda d=None: tdev.resolve_device("cpu" if d is None else d)  # noqa: E731
     for mod in (pdepth, pcd, tph):
         monkeypatch.setattr(mod, "resolve_device", cpu)
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     obs.get_tracer().clear()
     yield cli.main
     obs.set_device_events(False)

@@ -797,3 +797,92 @@ def test_federation_schedule_access_holds_the_pool_lock():
     f.next_poll_at = now - 100.0
     pool._advance_schedule(f)
     assert f.next_poll_at > time.monotonic() + 9.0
+
+
+# ---------------- the listen backlog ----------------
+
+
+class _BulkHandler(BaseHTTPRequestHandler):
+    """A worker that answers every POST after 50 ms with a 0.5 MB body:
+    the router's handler threads then hold the GIL long enough that its
+    accept loop falls behind a burst."""
+
+    BODY = json.dumps({"depth_bed": "x" * 500_000}).encode()
+
+    def log_message(self, *a):
+        pass
+
+    def do_GET(self):  # noqa: N802
+        data = b'{"status": "ok"}'
+        self.send_response(200)
+        self.send_header("Content-Length", str(len(data)))
+        self.end_headers()
+        self.wfile.write(data)
+
+    def do_POST(self):  # noqa: N802
+        self.rfile.read(int(self.headers.get("Content-Length", "0")))
+        time.sleep(0.05)
+        self.send_response(200)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(self.BODY)))
+        self.end_headers()
+        self.wfile.write(self.BODY)
+
+
+def test_router_answers_a_burst_past_the_default_backlog():
+    """Rounds of 32 concurrent clients through the router: every request
+    is answered. With socketserver's listen backlog of 5 (the JAX
+    package's router keeps it) about a third of them got a connection
+    reset; so did one request of chip_smoke.py's burst of 8 on the card.
+    The serve daemon and the federation share the backlog."""
+    import urllib.request
+
+    from goleft_tpu_torch.fleet import federation, router
+    from goleft_tpu_torch.serve import server
+
+    class Big(ThreadingHTTPServer):
+        request_queue_size = 128  # the stub workers are not under test
+
+    ws = [Big(("127.0.0.1", 0), _BulkHandler) for _ in range(2)]
+    threads = [threading.Thread(target=w.serve_forever, daemon=True)
+               for w in ws]
+    for t in threads:
+        t.start()
+    app = RouterApp([f"http://127.0.0.1:{w.server_address[1]}"
+                     for w in ws], poll_interval_s=600.0)
+    bad = []
+    try:
+        with RouterThread(app) as url:
+            for rnd in range(5):
+                go = threading.Event()
+
+                def fire(i, rnd=rnd):
+                    go.wait(timeout=30)
+                    req = urllib.request.Request(
+                        url + "/v1/depth",
+                        data=json.dumps({"bam": f"/x/{rnd}-{i}.bam"})
+                        .encode(),
+                        headers={"Content-Type": "application/json"})
+                    try:
+                        with urllib.request.urlopen(req, timeout=60) as r:
+                            assert len(r.read()) == len(_BulkHandler.BODY)
+                    except OSError as e:
+                        bad.append(repr(e))
+
+                ts = [threading.Thread(target=fire, args=(i,))
+                      for i in range(32)]
+                for t in ts:
+                    t.start()
+                go.set()
+                for t in ts:
+                    t.join(timeout=120)
+                    assert not t.is_alive()
+    finally:
+        for w in ws:
+            w.shutdown()
+            w.server_close()
+    assert bad == [], f"{len(bad)} of 160 requests failed: {bad[:3]}"
+    assert server.LISTEN_BACKLOG >= 128
+    for cls in (router._RouterServer, federation._FederationServer,
+                server._Server):
+        assert cls.request_queue_size == server.LISTEN_BACKLOG, cls

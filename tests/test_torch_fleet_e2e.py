@@ -53,7 +53,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: ``python -m goleft_tpu_torch serve`` with the device resolved to the
 #: CPU (the command itself has no CPU switch: it runs on the card)
 CPU_SERVE = (
-    "import sys, torch\n"
+    "import os, sys, torch\n"
+    "os.environ['GOLEFT_TPU_PROBE'] = '0'  # no card to probe\n"
     "import goleft_tpu_torch.device as d\n"
     "d.resolve_device = lambda device=None: torch.device('cpu')\n"
     "from goleft_tpu_torch.cli import main\n"

@@ -112,6 +112,7 @@ def test_depthwed_lockstep_error_and_names(tmp_path):
     "@HD\tVN:1.6\n@RG\tID:a\tSM:s1\n@RG\tID:b\tSM:s2\n@RG\tID:c\tSM:s1\n",
     "@HD\tVN:1.6\n",
 ])
+@pytest.mark.native_io
 def test_samplename_equals_reference(tmp_path, capsys, header):
     p = str(tmp_path / "t.bam")
     write_bam(p, [(0, 10, "50M", 60, 0)], header_text=header)
@@ -233,6 +234,7 @@ def _paired_bam(tmp_path, n_pairs=300, insert=150, read_len=100, seed=13):
 @pytest.mark.parametrize("n,skip,regions_bed", [(100, 0, False),
                                                 (200, 37, True),
                                                 (1_000_000, 100_000, False)])
+@pytest.mark.native_io
 def test_run_covstats_equals_reference(tmp_path, capsys, n, skip,
                                        regions_bed):
     from goleft_tpu_torch.io.bai import build_bai, write_bai
@@ -256,6 +258,7 @@ def test_run_covstats_equals_reference(tmp_path, capsys, n, skip,
     assert got.getvalue().splitlines()[1].split("\t")[-1] == "pp"
 
 
+@pytest.mark.native_io
 def test_covstats_golden_line(tmp_path):
     p = str(tmp_path / "g.bam")
     hdr = "@HD\tVN:1.6\tSO:coordinate\n@SQ\tSN:chr1\tLN:100000\n" \
@@ -278,6 +281,7 @@ def test_covstats_golden_line(tmp_path):
     assert len(h) == 276 and h[150] == 0.5 and h[200] == 0.5
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("window", [1 << 12, 1 << 14, 1 << 24])
 def test_stream_columns_equals_the_reference_decode(tmp_path, window):
     from goleft_tpu.io.bam import BamFile as RefBamFile
@@ -297,6 +301,7 @@ def test_stream_columns_equals_the_reference_decode(tmp_path, window):
             assert np.array_equal(got, getattr(want, f)), f
 
 
+@pytest.mark.native_io
 def test_covstats_parallel_and_failure(tmp_path):
     rng = np.random.default_rng(9)
     bams = []

@@ -298,6 +298,9 @@ def test_cli_runs_indexcov(cohort, tmp_path, monkeypatch):
 
     monkeypatch.setattr(tic, "resolve_device",
                         lambda d=None: tdev.resolve_device("cpu"))
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     ref = str(tmp_path / "ref" / "out")
     port = str(tmp_path / "port" / "out")
     man = str(tmp_path / "m.json")
@@ -325,6 +328,9 @@ def test_trace_out_has_one_device_span_a_normalized_chromosome(
 
     monkeypatch.setattr(tic, "resolve_device",
                         lambda d=None: tdev.resolve_device("cpu"))
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     obs.get_tracer().clear()
     trace = str(tmp_path / "t.json")
     try:

@@ -34,7 +34,7 @@ def _sources():
                  "pairhmm_bench.py", "sass_loops.py",
                  "cohort_bench.py", "flags_bench.py", "em_bench.py",
                  "norm_bench.py", "swalign_bench.py", "serve_bench.py",
-                 "bench_entries.py"):
+                 "bench_entries.py", "native_sanitize.py"):
         yield os.path.join(ROOT, "tools", tool)
 
 
@@ -622,8 +622,9 @@ def test_cpu_trace_out_run_loads_no_jax(tmp_path):
     the command's device pinned to the CPU; then neither jax nor
     goleft_tpu is loaded, and the trace holds the run."""
     script = textwrap.dedent(f"""
-        import sys
+        import os, sys
         sys.path.insert(0, {ROOT!r})
+        os.environ["GOLEFT_TPU_PROBE"] = "0"  # no card to probe
         import goleft_tpu_torch.device as d
         _r = d.resolve_device
         d.resolve_device = lambda device=None: _r("cpu")
@@ -780,7 +781,8 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
     """``python -m goleft_tpu_torch --metrics-out FILE depth`` on the CPU
     in a fresh process (no card: exit 1, one line): the JAX package's
     ``load_manifest`` accepts the file as a ``goleft-tpu.run-manifest``
-    of its own schema; the backend says "cpu" and no kernel launched;
+    of its own schema; the backend says "cpu" and no kernel launched
+    (the card's probe refused it before any import);
     the port's own keys ride beside the required ones, and the port's
     loader reads it the same."""
     from goleft_tpu.obs import manifest as ref
@@ -795,7 +797,10 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
         BamWriter(fh, "", ["chr1"], [100]).close()
     write_bai(build_bai(str(bam)), str(bam) + ".bai")
     out = tmp_path / "run.json"
-    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
+    # GOLEFT_TPU_PROBE_TTL_SECONDS=0: the card is probed, not looked up
+    # in the probe's cache
+    env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="",
+               GOLEFT_TPU_PROBE_TTL_SECONDS="0")
     env.pop("GOLEFT_TPU_DEBUG", None)
     r = subprocess.run(
         [sys.executable, "-m", "goleft_tpu_torch", "--metrics-out",
@@ -814,7 +819,10 @@ def test_metrics_out_is_the_reference_run_manifest(tmp_path):
     assert doc["command"] == "depth" and doc["exit_code"] == 1
     assert doc["argv"][0] == "goleft-tpu-torch depth"
     assert doc["spans"]["run.depth"]["calls"] == 1
-    assert doc["import_seconds"] > 0 and "native_io" in doc
+    # the card's probe (a child) refused it before this process imported
+    # torch or the command
+    assert doc["import_seconds"] == 0 and "native_io" in doc
+    assert doc["spans"]["device-probe"]["calls"] == 1
     assert "counters" in doc["metrics"] and "stage_seconds" not in doc
     # the run's trace id, of the reference's cli-<pid>-<n> shape
     assert re.fullmatch(r"cli-\d+-\d+", doc["trace_id"])
@@ -870,7 +878,8 @@ TORCH_FREE_MODULES = [
     "goleft_tpu_torch.io.cram", "goleft_tpu_torch.io.rans_nx16",
     "goleft_tpu_torch.io.arith", "goleft_tpu_torch.io.fqzcomp",
     "goleft_tpu_torch.io.tok3", "goleft_tpu_torch.utils.decode_scaling",
-    "goleft_tpu_torch.bench",
+    "goleft_tpu_torch.bench", "goleft_tpu_torch.obs.provenance",
+    "goleft_tpu_torch.obs.manifest", "goleft_tpu_torch.utils.device_guard",
 ]
 
 

@@ -51,6 +51,9 @@ def cpu_cli(monkeypatch):
     """The port's CLI with map's default device pointed at the CPU."""
     monkeypatch.setattr(map_cmd, "resolve_device",
                         lambda device=None: resolve_device("cpu"))
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     yield
     from goleft_tpu_torch.resilience import faults
 

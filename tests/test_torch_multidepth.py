@@ -205,6 +205,9 @@ def test_cli_runs_multidepth(dense_cohort, monkeypatch, capsys):
 
     monkeypatch.setattr(tmd, "resolve_device",
                         lambda d=None: tdev.resolve_device("cpu"))
+    # the card's subprocess probe is skipped: the commands run on the
+    # CPU here (utils/device_guard.py)
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     args = ["-c", "chr1", "-Q", "1", "--mincov", "5", *dense_cohort]
     jmd.main(args)
     want = capsys.readouterr().out

@@ -20,6 +20,10 @@ CPU, against the JAX package's.
   tests/test_native.py holds the reference's.
 - ``cohortdepth`` and ``/v1/cohortdepth`` give the reference's bytes
   with the port's library loaded and without it.
+
+Every case but those two runs neither XLA nor torch and carries the
+``native_io`` marker: ``tools/native_sanitize.py`` runs them with the
+port's library built under ASan and under TSan.
 """
 
 import io
@@ -112,6 +116,7 @@ def _names(rng, n):
 # ---------------- the codecs, byte for byte ----------------
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("x32", [False, True])
 @pytest.mark.parametrize("rle", [False, True])
@@ -126,6 +131,7 @@ def test_rans_nx16_flag_matrix(monkeypatch, order, x32, rle, pack):
                  [f"ransnx16_decode{order}"])
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 def test_rans_nx16_stripe(monkeypatch, order):
     rng = np.random.default_rng(7 + order)
@@ -137,6 +143,7 @@ def test_rans_nx16_stripe(monkeypatch, order):
                  [f"ransnx16_decode{order}"])
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 def test_rans_nx16_nosz(monkeypatch, order):
     rng = np.random.default_rng(11 + order)
@@ -150,6 +157,7 @@ def test_rans_nx16_nosz(monkeypatch, order):
                  [f"ransnx16_decode{order}"])
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 def test_rans4x8(monkeypatch, order):
     rng = np.random.default_rng(21 + order)
@@ -161,6 +169,7 @@ def test_rans4x8(monkeypatch, order):
                  data, ["rans4x8_decode"])
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("rle", [False, True])
 def test_arith(monkeypatch, order, rle):
@@ -190,6 +199,7 @@ def _fqz_params(kind):
 
 @pytest.mark.parametrize("kind", ["default", "fixed_length_dedup",
                                   "delta_context", "reversal"])
+@pytest.mark.native_io
 def test_fqzcomp(monkeypatch, kind):
     rng = np.random.default_rng(41)
     if kind == "fixed_length_dedup":
@@ -207,6 +217,7 @@ def test_fqzcomp(monkeypatch, kind):
                  ["fqzcomp_decode"])
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("use_arith", [False, True])
 def test_tok3(monkeypatch, use_arith):
     names = _names(np.random.default_rng(51), 400)
@@ -230,6 +241,7 @@ def _same_error(port_call, ref_call):
     assert str(got.value) == str(want.value)
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 def test_rans4x8_truncated_raises_the_references_error(order):
     data = bytes(np.random.default_rng(61).integers(0, 40, 3000)
@@ -243,6 +255,7 @@ def test_rans4x8_truncated_raises_the_references_error(order):
                 lambda: jcram.rans_decode(cut))
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("order", [0, 1])
 def test_ransnx16_truncated_falls_back_to_the_references_error(order):
     data = _runs(np.random.default_rng(62), 4000)
@@ -260,6 +273,7 @@ def test_ransnx16_truncated_falls_back_to_the_references_error(order):
                 lambda: jrx.decode(cut, len(data)))
 
 
+@pytest.mark.native_io
 def test_arith_truncated_falls_back_to_the_references_error():
     data = bytes(np.random.default_rng(63).integers(0, 4, 4000)
                  .astype(np.uint8) + 65)
@@ -273,6 +287,7 @@ def test_arith_truncated_falls_back_to_the_references_error():
                 lambda: jarith.decode(cut, len(data)))
 
 
+@pytest.mark.native_io
 def test_fqzcomp_truncated_falls_back_to_the_references_error():
     lens, quals = _quals(np.random.default_rng(64), 20)
     enc = jfq.encode(lens, quals)
@@ -283,6 +298,7 @@ def test_fqzcomp_truncated_falls_back_to_the_references_error():
                 lambda: jfq.decode(cut, len(quals)))
 
 
+@pytest.mark.native_io
 def test_tok3_corrupt_streams_fall_back_to_the_references_error():
     names = _names(np.random.default_rng(65), 50)
     want = b"\x00".join(names) + b"\x00"
@@ -295,6 +311,7 @@ def test_tok3_corrupt_streams_fall_back_to_the_references_error():
                 lambda: jtok3.decode(cut, len(want)))
 
 
+@pytest.mark.native_io
 def test_bgzf_stream_inflate_only_corrupt_raises_the_references_error(
         tmp_path):
     p = str(tmp_path / "t.bam")
@@ -308,6 +325,7 @@ def test_bgzf_stream_inflate_only_corrupt_raises_the_references_error(
                 lambda: jnative.bgzf_stream_inflate_only(comp[:-40]))
 
 
+@pytest.mark.native_io
 def test_format_matrix_rows_capacity_overflow():
     """The C formatter refuses a buffer one byte under a row's worst
     case (-1, as the reference's); the wrapper sizes its buffer for the
@@ -338,6 +356,7 @@ def test_format_matrix_rows_capacity_overflow():
 # ---------------- the matrix formatter and the decode floor ----------
 
 
+@pytest.mark.native_io
 @pytest.mark.parametrize("case", ["zeros", "near_2_62", "chrom_names"])
 def test_format_matrix_rows_matches_the_reference(case):
     rng = np.random.default_rng(71)
@@ -365,6 +384,7 @@ def test_format_matrix_rows_matches_the_reference(case):
         assert native.format_matrix_rows(c, starts, ends, t) == got
 
 
+@pytest.mark.native_io
 def test_bgzf_stream_inflate_only(tmp_path):
     """The decode-floor probe streams the product's ring driver with a
     no-op walk: the total is the block scan's, with and without CRC;

@@ -310,9 +310,12 @@ def test_main_flags_and_out_match_reference(docs, tmp_path, monkeypatch):
 def test_cli_bad_input_and_missing_card_exit_1(docs, tmp_path, monkeypatch,
                                                capsys):
     monkeypatch.delenv("GOLEFT_TPU_DEBUG", raising=False)
+    # the bad input is the command's to find: the card's probe skipped
+    monkeypatch.setenv("GOLEFT_TPU_PROBE", "0")
     assert cli.main(["pairhmm", str(tmp_path / "nope.json")]) == 1
     err = capsys.readouterr().err.strip().splitlines()
     assert len(err) == 1 and "cannot read windows file" in err[0]
+    monkeypatch.delenv("GOLEFT_TPU_PROBE")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     report = tmp_path / "rep.json"
     assert cli.main(["pairhmm", "--metrics-out", str(report),

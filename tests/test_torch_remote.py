@@ -228,6 +228,7 @@ def test_bai_and_crai_over_urls(tmp_path, srv):
         == [(0, 1, 999, 100), (1, 5, 10, 700)]
 
 
+@pytest.mark.native_io
 def test_open_bam_file_over_url_decodes_identically(tmp_path, srv):
     from goleft_tpu_torch.io.bam import open_bam_file
 

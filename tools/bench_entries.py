@@ -31,7 +31,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     from goleft_tpu_torch import bench, cli
-    from goleft_tpu_torch.device import nvidia_smi_line, resolve_device
+    from goleft_tpu_torch.device import resolve_device
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
 
     dev = resolve_device()
     print(nvidia_smi_line(), flush=True)

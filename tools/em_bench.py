@@ -61,7 +61,7 @@ def main(argv=None) -> int:
     spec.loader.exec_module(cs)
     cuda_median_ms, em_matrix = cs.cuda_median_ms, cs.em_matrix
     from goleft_tpu_torch.commands import emdepth_cmd as ec
-    from goleft_tpu_torch.device import nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
     from goleft_tpu_torch.models import emdepth as em
     from goleft_tpu_torch.models import mops
 

@@ -46,7 +46,7 @@ def main(argv=None) -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import goleft_tpu_torch
-    from goleft_tpu_torch.device import nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
     from goleft_tpu_torch.ops import norm_kernel as nk
     from torch.profiler import ProfilerActivity, profile
 

@@ -103,7 +103,7 @@ def main(argv=None) -> int:
     finally:
         proc.send_signal(signal.SIGTERM)
         proc.wait(timeout=120)
-    from goleft_tpu_torch.device import nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
 
     out["card"] = nvidia_smi_line()
     print(json.dumps(out))

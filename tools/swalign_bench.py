@@ -69,7 +69,7 @@ def main(argv=None) -> int:
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     import goleft_tpu_torch
-    from goleft_tpu_torch.device import nvidia_smi_line
+    from goleft_tpu_torch.obs.provenance import nvidia_smi_line
     from goleft_tpu_torch.ops import swalign
     from goleft_tpu_torch.ops import swalign_kernel as sk
 
